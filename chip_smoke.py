@@ -6,19 +6,25 @@
 Builds the port's CUDA kernels from ``src/repro_torch`` (into
 ``build/repro_torch/``), drives the boolean engine through
 ``repro_torch.prepare(graph).apsp(sources)`` on two graphs of 65,536
-nodes made by the port's own generators, checks the distances against
-scipy's BFS, and holds every kernel bit-identical to its plain PyTorch
-version at full width.  One JSON line per phase; the last line is
-``{"ok": true, "device": {...}}``.  Any failure raises and the script
-exits non-zero.  Without CUDA, or outside a checkout of the repository,
-it exits non-zero at once.
+nodes made by the port's own generators, then the counting engine
+(``apsp(sources, semiring="counting")``) and the centrality analytics
+(``prepare(graph).centrality(sources)``) on rmat16.  It checks distances
+against scipy's BFS, path counts against a float64 count on the host,
+betweenness against a float64 Brandes on the host, and holds every
+kernel bit-identical to its plain PyTorch version at full width.  One
+JSON line per phase; the last line is ``{"ok": true, "device": {...}}``.
+Any failure raises and the script exits non-zero.  Without CUDA, or
+outside a checkout of the repository, it exits non-zero at once.
 
 Graphs:
   rmat16   Graph500 RMAT parameters (A=0.57, B=0.19, C=0.19, edge factor
            16), undirected, seed 1, cut to scale 16 so the dense packed
            operand (n_pad^2 / 8 = 539 MB) fits one card; 1,024 sources.
   grid256  256 x 256 4-connected grid, road-like (diameter 510); 128
-           sources.
+           sources.  Boolean only: its shortest-path counts run far past
+           float32's 3.4e38 (phase ``grid256_counts`` prints a float64
+           count), so the counting path runs on rmat16 alone, where every
+           count stays below 2^24 (checked).
 """
 from __future__ import annotations
 
@@ -35,6 +41,11 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 SEED = 1
 N_CHECK = 16                 # sources checked against scipy per graph
+N_CENTRALITY = 128           # sources of the centrality run
+EXACT_F32 = 2 ** 24          # float32 counts are exact integers below this
+# betweenness: float32 dependency sums (atomic scatter-adds in any order,
+# a few thousand terms per hub) against a float64 Brandes on the host
+BETWEENNESS_RTOL = 1e-5
 # float32 running sum of degrees over <= ~1,000 per-sweep partial sums,
 # each a tree reduction of < 2^24-exact terms: relative error stays
 # below (1,000 + 24) * 2^-24 ~ 6.1e-5
@@ -42,8 +53,8 @@ EDGES_RTOL = 1e-4
 
 # least time the card could take (H100 SXM data sheet, dense rates at the
 # 700 W limit): HBM bytes/s, int8 tensor-core ops/s, and 32-bit word
-# logic ops/s (the float32 instruction rate, 67 TFLOP/s counting an FMA
-# as two operations)
+# ops/s — word logic or f32 adds (the float32 instruction rate, 67
+# TFLOP/s counting an FMA as two operations)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 WORD_OPS_PER_S = 33.5e12
@@ -53,7 +64,10 @@ REPLACES = {
     "packed_pull_sweep": "src/repro/kernels/bovm/kernel.py:184",
     "fused_boolean_multisweep": "src/repro/kernels/bovm/kernel.py:343",
     "fused_sweep": "src/repro/kernels/bovm/kernel.py:116",
+    "fused_counting_sweep": "src/repro/kernels/counting/kernel.py:103",
+    "fused_counting_multisweep": "src/repro/kernels/counting/kernel.py:184",
 }
+MULTI_SWEEP_NOTE = "no single PyTorch call computes a multi-sweep block"
 
 
 def emit(**fields):
@@ -88,6 +102,44 @@ def scipy_dist(g, sources) -> np.ndarray:
     return np.where(np.isinf(d), -1, d).astype(np.int32)
 
 
+def host_counts(g, sources):
+    """Level-synchronous BFS with shortest-path counts in float64 on the
+    host (scipy): (dist int32 (S, n), sigma float64 (S, n))."""
+    at = g.to_scipy().T.tocsr().astype(np.float64)      # at[j, k] = A[k, j]
+    n, s = g.n_nodes, len(sources)
+    cols = np.arange(s)
+    dist = np.full((n, s), -1, np.int64)
+    sigma = np.zeros((n, s))
+    dist[sources, cols] = 0
+    sigma[sources, cols] = 1.0
+    front, level = sigma.copy(), 0
+    while True:
+        level += 1
+        cand = at @ front
+        new = (cand > 0) & (dist < 0)
+        if not new.any():
+            break
+        dist[new] = level
+        sigma[new] = cand[new]
+        front = np.where(new, cand, 0.0)
+    return dist.T.astype(np.int32), sigma.T
+
+
+def host_betweenness(g, sources, dist, sigma):
+    """Source-restricted Brandes betweenness in float64 on the host, level
+    by level: delta[u] += sigma[u] / sigma[v] * (1 + delta[v]) over edges
+    u -> v one level apart."""
+    a = g.to_scipy().tocsr().astype(np.float64)         # a[u, v]: u -> v
+    delta = np.zeros_like(sigma)
+    for t in range(int(dist.max()), 0, -1):
+        coeff = np.where(dist == t, (1.0 + delta) / np.maximum(sigma, 1.0),
+                         0.0)
+        delta += np.where(dist == t - 1, sigma * (a @ coeff.T).T, 0.0)
+    bc = delta.sum(axis=0)
+    np.subtract.at(bc, sources, delta[np.arange(len(sources)), sources])
+    return bc
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -98,12 +150,25 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     import repro_torch
+    from repro_torch.core.centrality import (CentralityConfig,
+                                             counting_apsp_blocks)
     from repro_torch.core.engine import EngineConfig, apsp_engine_blocks
     from repro_torch.core.frontier import pack_bits
     from repro_torch.graph import generators as gen
     from repro_torch.kernels import _build
-    from repro_torch.kernels import bovm
+    from repro_torch.kernels import bovm, common, counting
     from repro_torch.kernels.bovm import ref as R
+    from repro_torch.kernels.counting import ref as CR
+
+    # the plain versions and the library yardstick take full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = (bovm.packed_push_sweep, bovm.packed_pull_sweep,
+               bovm.fused_boolean_multisweep, bovm.fused_sweep)
+    ckernels = (counting.fused_counting_sweep,
+                counting.fused_counting_multisweep)
+    sources_of = {k.__name__: str(Path(sys.modules[k.__module__].SOURCE)
+                                  .relative_to(ROOT))
+                  for k in kernels + ckernels}
 
     smi = nvidia_smi()
     emit(phase="device", nvidia_smi=smi,
@@ -148,8 +213,6 @@ def main() -> int:
         "pull": dict(mode="pull", use_kernel=True),
         "fused": dict(fused_steps=-1),
     }
-    kernels = (bovm.packed_push_sweep, bovm.packed_pull_sweep,
-               bovm.fused_boolean_multisweep, bovm.fused_sweep)
     bovm.reset_launches()
     results = {}
     for name, g in graphs.items():
@@ -202,6 +265,109 @@ def main() -> int:
         if launches[k.__name__] < 1:
             raise AssertionError(f"{k.__name__} never launched on the "
                                  f"main path")
+    del results
+
+    # -- the counting path on rmat16: default, pinned push, fused ------------
+    # grid256 takes no counting run: its path counts overflow float32
+    gdist, gsigma = host_counts(graphs["grid256"],
+                                srcs["grid256"][:N_CHECK])
+    emit(phase="grid256_counts", sources=N_CHECK,
+         max_sigma_f64=float(gsigma.max()), depth=int(gdist.max()),
+         float32_max=float(np.finfo(np.float32).max))
+    g = graphs["rmat16"]
+    csrcs = srcs["rmat16"]
+    check = csrcs[:: len(csrcs) // N_CHECK][:N_CHECK]
+    rows = torch.from_numpy(np.searchsorted(csrcs, check)).cuda()
+    want_dist, want_sigma = host_counts(g, check)
+    if not np.array_equal(want_dist, scipy_dist(g, check)):
+        raise AssertionError("host counting BFS differs from scipy BFS")
+    cruns = {
+        "default": {},
+        "push": dict(mode="push", use_kernel=True),
+        "fused": dict(fused_steps=-1),
+    }
+    counting.reset_launches()
+    cres = {}
+    for run, opts in cruns.items():
+        h = repro_torch.prepare(g, **opts)
+        h.prepared().adj                     # operand build = set-up
+        before = [k.launches for k in ckernels]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = h.apsp(csrcs, semiring="counting")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        max_sigma = float(res.sigma.max())
+        if not max_sigma < EXACT_F32:
+            raise AssertionError(f"counting/{run}: a path count reached "
+                                 f"{max_sigma}, not exact in float32")
+        if not np.array_equal(res.dist[rows].cpu().numpy(), want_dist):
+            raise AssertionError(f"counting/{run}: dist differs from scipy "
+                                 f"BFS")
+        if not np.array_equal(res.sigma[rows].cpu().numpy()
+                              .astype(np.float64), want_sigma):
+            raise AssertionError(f"counting/{run}: sigma differs from the "
+                                 f"float64 host count")
+        cres[run] = res
+        emit(phase="counting", graph="rmat16", run=run, options=opts,
+             seconds=wall, sweeps=res.sweeps,
+             direction_counts=res.direction_counts.tolist(),
+             max_sigma=max_sigma, sigma_exact_below=EXACT_F32,
+             launches={k.__name__: k.launches - b
+                       for k, b in zip(ckernels, before)},
+             dist_sigma_checked_rows=int(len(check)))
+        del h
+    base = cres["default"]
+    for run in ("push", "fused"):
+        r = cres[run]
+        if not (torch.equal(r.dist, base.dist)
+                and torch.equal(r.sigma, base.sigma)
+                and r.sweeps == base.sweeps):
+            raise AssertionError(f"counting/{run}: dist, sigma or sweeps "
+                                 f"differ from the default run")
+    if not torch.equal(cres["push"].direction_counts,
+                       cres["fused"].direction_counts):
+        raise AssertionError("counting: fused accounting differs from the "
+                             "per-sweep push")
+    del cres, base, r, res
+
+    # -- centrality on rmat16 ------------------------------------------------
+    csub = csrcs[:N_CENTRALITY]
+    h = repro_torch.prepare(g)
+    h.prepared()
+    before = [k.launches for k in ckernels]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cent = h.centrality(csub)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del h
+    hdist, hsigma = host_counts(g, csub)
+    want_bc = host_betweenness(g, csub, hdist, hsigma)
+    bc_err = np.abs(cent.betweenness - want_bc)
+    bc_rel = float((bc_err / np.maximum(np.abs(want_bc), 1e-300)).max())
+    if not np.allclose(cent.betweenness, want_bc, rtol=BETWEENNESS_RTOL,
+                       atol=0.0):
+        raise AssertionError(f"centrality: betweenness differs from the "
+                             f"float64 host Brandes (max rel {bc_rel})")
+    want_ecc = scipy_dist(g, csub).max(axis=1)
+    if not np.array_equal(cent.eccentricity, want_ecc):
+        raise AssertionError("centrality: eccentricity differs from scipy")
+    emit(phase="centrality", graph="rmat16", sources=int(len(csub)),
+         measures=["closeness", "harmonic", "eccentricity", "betweenness"],
+         seconds=wall, sweeps=cent.sweeps,
+         sigma_checksum=cent.sigma_checksum, radius=cent.radius,
+         diameter=cent.diameter, betweenness_max_rel_err=bc_rel,
+         betweenness_rtol=BETWEENNESS_RTOL,
+         launches={k.__name__: k.launches - b
+                   for k, b in zip(ckernels, before)})
+    claunches = {k.__name__: k.launches for k in ckernels}
+    emit(phase="counting_path", launches=claunches)
+    for k in ckernels:
+        if claunches[k.__name__] < 1:
+            raise AssertionError(f"{k.__name__} never launched on the "
+                                 f"counting path")
+    launches.update(claunches)
 
     # -- each kernel against its plain version, full width -------------------
     pg = repro_torch.prepare(graphs["rmat16"]).prepared()
@@ -254,25 +420,30 @@ def main() -> int:
 
     rows_out = []
 
+    def flat(outs):
+        for o in outs:
+            yield from (flat(o) if isinstance(o, tuple) else (o,))
+
     def record(name, kern, plain, outs_k, outs_p, bytes_, ops, rate,
-               reps, lib):
+               reps, lib, **extra):
+        outs_k, outs_p = list(flat(outs_k)), list(flat(outs_p))
+        err = 0.0
         for a, b in zip(outs_k, outs_p):
             if not torch.equal(a.cpu(), b.cpu()):
                 raise AssertionError(f"{name}: kernel differs from its "
                                      f"plain version")
-        err = float((outs_k[1].double() - outs_p[1].double()).abs().max())
+            err = max(err, float((a.double() - b.double()).abs().max()))
         t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
         t_ops = ops / rate * 1e3
         rows_out.append(dict(
-            name=name, route="cuda",
-            source="src/repro_torch/kernels/bovm/csrc/bovm.cu",
+            name=name, route="cuda", source=sources_of[name],
             replaces=REPLACES[name], launches=launches[name],
             max_abs_err=err, ms=cuda_ms(torch, kern, reps),
             plain_ms=cuda_ms(torch, plain, 1),
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=lib, match=True,
-            shape=dict(s=s, n_pad=n_pad, words=words)))
+            shape=dict(s=s, n_pad=n_pad, words=words), **extra))
         emit(phase="kernel", **rows_out[-1])
 
     step = mid_step + 1
@@ -316,7 +487,8 @@ def main() -> int:
             break
         fp_t = pack_bits(new_t != 0)
     record("fused_boolean_multisweep", k3, k3_plain, out3, k3_plain(),
-           io + b3, o3, WORD_OPS_PER_S, 3, None)
+           io + b3, o3, WORD_OPS_PER_S, 3, None,
+           library_note=MULTI_SWEEP_NOTE)
 
     adj = pg.adj
     bk = 128
@@ -339,6 +511,74 @@ def main() -> int:
     k4_ops = 2.0 * s * live_k * bk * unreached_cols
     record("fused_sweep", k4, k4_plain, k4(), k4_plain(), k4_bytes, k4_ops,
            INT8_OPS_PER_S, 3, library_ms)
+
+    # -- K5 / K6 on a mid-run counting state, full width ---------------------
+    _, _, _, cst = next(counting_apsp_blocks(
+        pg, srcs["rmat16"][:128], config=CentralityConfig(
+            mode="push", use_kernel=True, max_steps=mid_step)))
+    cf = cst.frontier.contiguous()
+    cd, csg = (t.contiguous() for t in cst.dist)
+    if not float(csg.max()) < EXACT_F32:
+        raise AssertionError("mid-run state: counts not exact in float32")
+    fs = torch.where(cf != 0, csg, 0.0)
+    lane_src, lane_dst = pg.graph.src.long(), pg.graph.dst.long()
+    torch.cuda.synchronize()
+
+    def counting_need(f_, d_):
+        """Operand bytes and f32 adds one counting sweep needs on this
+        state.  Bytes: the operand rows k in any row's frontier, in the
+        32 B sectors (32 columns) that hold an unreached target of any
+        row.  Adds: one per (row s, edge k -> j) with k in s's frontier and
+        j unreached in s; a zero operand byte needs none."""
+        act_k = int((f_ != 0).any(dim=0).sum())
+        open_sec = int((d_ < 0).any(dim=0).reshape(-1, 32).any(dim=1).sum())
+        adds = float(((f_[:, lane_src] != 0) & (d_[:, lane_dst] < 0)).sum())
+        return act_k * open_sec * 32, adds
+
+    def tile_bytes(f_, d_):
+        """Operand bytes of the live (k-block, column-tile) pairs at the
+        kernel's 128 x 128 tiles: the K5 tile skip's own count."""
+        f_occ = common.block_any(f_ != 0, 1, s, n_pad // bk, bk)
+        o_occ = common.block_any(d_ < 0, 1, s, n_pad // 128, 128)
+        return int(f_occ.sum()) * int(o_occ.sum()) * bk * 128
+
+    def k5():
+        return counting.fused_counting_sweep(fs, adj, cd, csg, step, bs=128,
+                                             bn=128, bk=bk)
+
+    def k5_plain():
+        return CR.counting_sweep_ref(fs, adj, cd, csg, step)
+
+    adj_f32 = adj.to(torch.float32)          # 17.2 GB, the yardstick only
+    lib5 = cuda_ms(torch, lambda: torch.matmul(fs, adj_f32), 3)
+    del adj_f32
+    b5, o5 = counting_need(cf, cd)
+    record("fused_counting_sweep", k5, k5_plain, k5(), k5_plain(),
+           s * n_pad * 21 + b5, o5, WORD_OPS_PER_S, 5, lib5,
+           tile_bytes=tile_bytes(cf, cd), max_sigma=float(csg.max()),
+           sigma_exact_below=EXACT_F32)
+
+    def k6():
+        return counting.fused_counting_multisweep(
+            cf, adj, (cd, csg), mid_step, n_run, bs=128, max_sweeps=n_run)
+
+    def k6_plain():
+        return CR.fused_counting_multisweep_ref(cf, adj, cd, csg, mid_step,
+                                                n_run)
+
+    # the sweeps the block needs on this state
+    f_t, d_t, sg_t, b6, o6 = cf, cd, csg, 0, 0.0
+    for t in range(n_run):
+        nb, no = counting_need(f_t, d_t)
+        b6, o6 = b6 + nb, o6 + no
+        f_t, d_t, sg_t = CR.counting_sweep_ref(
+            torch.where(f_t != 0, sg_t, 0.0), adj, d_t, sg_t,
+            mid_step + 1 + t)
+        if not bool(f_t.any()):
+            break
+    record("fused_counting_multisweep", k6, k6_plain, k6(), k6_plain(),
+           s * n_pad * 18 + b6, o6, WORD_OPS_PER_S, 2, None,
+           library_note=MULTI_SWEEP_NOTE)
     # launches of the comparisons above do not count: report the main path's
     for row in rows_out:
         row["launches"] = launches[row["name"]]

@@ -8,9 +8,10 @@
 
 ``prepare`` puts the graph's operands on ``device`` (``None``: the card;
 pass ``device="cpu"`` for the CPU) and raises when CUDA is missing and
-the CPU was not asked for.  This slice brings the boolean semiring; the
-other semirings and routes of ``repro.api`` raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+the CPU was not asked for.  The boolean and counting semirings and
+centrality are ported; the tropical semiring and the other routes of
+``repro.api`` raise ``NotImplementedError`` naming the ROADMAP item that
+brings them.
 """
 from __future__ import annotations
 
@@ -18,6 +19,9 @@ from typing import Optional, Sequence
 
 import torch
 
+from .core.centrality import MEASURES, CentralityConfig, CentralityResult
+from .core.centrality import centrality as _centrality
+from .core.centrality import counting_apsp as _counting_apsp
 from .core.engine import EngineConfig, PreparedGraph, prepare_graph
 from .core.engine import apsp_engine as _apsp_engine
 from .core.options import SweepOptions
@@ -27,8 +31,6 @@ SEMIRING_NAMES = ("boolean", "tropical", "counting")
 
 _NOT_PORTED = {
     "tropical": "the tropical engine (ROADMAP Queue 1 item 7)",
-    "counting": "the counting semiring and centrality (ROADMAP Queue 1 "
-                "item 6)",
 }
 
 
@@ -37,8 +39,8 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 class DawnGraph:
-    """Prepared-graph handle returned by :func:`prepare`.  The boolean
-    operands are built once, lazily, on the handle's device."""
+    """Prepared-graph handle returned by :func:`prepare`.  The operands
+    are built once, lazily, on the handle's device."""
 
     def __init__(self, graph: CSRGraph, *,
                  options: Optional[SweepOptions] = None, device=None):
@@ -48,7 +50,8 @@ class DawnGraph:
         self._pg: Optional[PreparedGraph] = None
 
     def prepared(self) -> PreparedGraph:
-        """The :class:`PreparedGraph` (boolean operands) on the device."""
+        """The :class:`PreparedGraph` (boolean and counting operands) on
+        the device."""
         if self._pg is None:
             self._pg = prepare_graph(self.graph, device=self.device)
         return self._pg
@@ -65,7 +68,9 @@ class DawnGraph:
              semiring: str = "boolean", mesh=None,
              checkpoint_dir: Optional[str] = None, on_chunk=None):
         """Batched multi-source shortest paths (default: all sources) ->
-        :class:`repro_torch.core.engine.ApspResult`."""
+        :class:`repro_torch.core.engine.ApspResult` (boolean) or
+        :class:`repro_torch.core.centrality.CountingResult` (counting:
+        levels plus exact shortest-path counts)."""
         self._check_semiring(semiring)
         if mesh is not None:
             raise _not_ported("mesh= (the sharded executor, ROADMAP Queue "
@@ -73,6 +78,10 @@ class DawnGraph:
         if checkpoint_dir is not None or on_chunk is not None:
             raise _not_ported("checkpoint_dir= / on_chunk= (resumable "
                               "jobs, ROADMAP Queue 1 item 10)")
+        if semiring == "counting":
+            return _counting_apsp(self.prepared(), sources,
+                                  config=self.options.to(CentralityConfig,
+                                                         lenient=True))
         return _apsp_engine(self.prepared(), sources,
                             config=self.options.to(EngineConfig,
                                                    lenient=True))
@@ -82,9 +91,14 @@ class DawnGraph:
         """One distance row from ``source``: int32 hops, -1 unreachable."""
         return self.apsp([int(source)], semiring=semiring, mesh=mesh).dist[0]
 
-    def centrality(self, *args, **kwargs):
-        raise _not_ported("centrality (the counting semiring, ROADMAP "
-                          "Queue 1 item 6)")
+    def centrality(self, sources: Optional[Sequence[int]] = None, *,
+                   measures: Sequence[str] = MEASURES,
+                   mesh=None) -> CentralityResult:
+        """Batched centrality analytics over the counting semiring."""
+        return _centrality(self.prepared(), sources, measures=measures,
+                           config=self.options.to(CentralityConfig,
+                                                  lenient=True),
+                           mesh=mesh)
 
     def incremental(self, *args, **kwargs):
         raise _not_ported("incremental repair (ROADMAP Queue 1 item 8)")

@@ -1,14 +1,16 @@
-"""The semiring sweep-operator layer — one loop under the boolean engine.
+"""The semiring sweep-operator layer — one loop under the engines.
 
-The port of the boolean half of ``repro/core/sweep.py``.  A *sweep*
-extends all known shortest paths by one relaxation, skips settled
-targets (Thm 3.2) and the loop stops at the first sweep that settles
-nothing (Fact 1).  This module owns:
+The port of the boolean and counting halves of ``repro/core/sweep.py``.
+A *sweep* extends all known shortest paths by one relaxation, skips
+settled targets (Thm 3.2) and the loop stops at the first sweep that
+settles nothing (Fact 1).  This module owns:
 
-  * :class:`Semiring`    — the algebra spec (boolean in this slice);
+  * :class:`Semiring`    — the algebra spec (boolean, counting);
   * the three boolean sweep *forms* over identical padded state — dense
     push, bit-packed pull, edge-parallel sparse scatter
     (:func:`boolean_forms`);
+  * the two counting forms — f32 push product and sparse scatter-add
+    over the (dist, sigma) pair (:func:`counting_forms`);
   * :class:`SweepState`  — the loop state (``frontier``, ``dist``,
     ``parent``, ``step``, ``sweeps``, ``edges_touched``, ``dir_counts``);
   * :func:`sweep_loop`   — the ONE loop driver of ``repro_torch/core``;
@@ -17,9 +19,10 @@ nothing (Fact 1).  This module owns:
 
 A *form* is a callable ``(frontier, dist, parent, step) -> (new_frontier,
 dist, parent)``; ``new_frontier`` is the int8 set of entries the sweep
-discovered.  Where the JAX package runs ``lax.while_loop``, the port runs
-a host loop that reads the Fact-1 flag (and the chosen direction) back
-once per sweep.
+discovered.  ``dist`` is the semiring's state: a tensor, or for the
+counting semiring the ``(dist, sigma)`` pair.  Where the JAX package
+runs ``lax.while_loop``, the port runs a host loop that reads the Fact-1
+flag (and the chosen direction) back once per sweep.
 """
 from __future__ import annotations
 
@@ -58,6 +61,11 @@ class Semiring:
 
 BOOLEAN = Semiring("boolean", torch.int32, UNREACHED, 0,
                    unit="dense MAC / packed word / CSR lane")
+# Path counting: the state is the PAIR (dist int32, sigma f32) and ⊕ is
+# elementwise ADD of path counts, gated on dist ties — non-idempotent, so
+# every partial is summed exactly once before the gate.
+COUNTING = Semiring("counting", torch.int32, UNREACHED, 0,
+                    unit="f32 MAC / CSR add lane")
 
 
 # --------------------------------------------------------------------------
@@ -68,7 +76,8 @@ class SweepState(NamedTuple):
     """Loop state.  The tensors live on the state's device; the counters
     the host loop branches on are Python values."""
     frontier: torch.Tensor       # entries discovered by the last sweep (int8)
-    dist: torch.Tensor           # distances (int32, -1 unreached)
+    dist: Any                    # distances (int32, -1 unreached), or the
+                                 # counting (dist, sigma) pair
     parent: torch.Tensor         # shortest-path tree (int32; (1,) dummy: off)
     step: int                    # sweeps executed
     done: bool                   # Fact 1 fired
@@ -81,16 +90,18 @@ SweepForm = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, int],
                      Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
 
-def make_state(frontier: torch.Tensor, dist: torch.Tensor,
+def make_state(frontier: torch.Tensor, dist,
                parent: Optional[torch.Tensor] = None, *,
                n_forms: int = 3) -> SweepState:
-    """Initial SweepState around caller-built frontier/dist buffers."""
+    """Initial SweepState around caller-built frontier/dist buffers
+    (``dist`` a tensor or the counting (dist, sigma) pair)."""
+    dev = frontier.device
     if parent is None:
-        parent = torch.zeros((1,), dtype=torch.int32, device=dist.device)
+        parent = torch.zeros((1,), dtype=torch.int32, device=dev)
     return SweepState(frontier=frontier, dist=dist, parent=parent, step=0,
                       done=False, sweeps=0,
                       edges_touched=torch.zeros((), dtype=torch.float32,
-                                                device=dist.device),
+                                                device=dev),
                       dir_counts=(0,) * n_forms)
 
 
@@ -113,7 +124,8 @@ def sweep_loop(forms: Sequence[SweepForm], state: SweepState, *,
     choose     : ``SweepState -> int`` form index (the per-sweep
                  direction optimizer); ``None`` pins ``forms[forced_dir]``.
     fused      : optional fused multi-sweep block ``(frontier, dist, step,
-                 n_run) -> (new, dist, prod, stopped)`` built by
+                 n_run) -> (new, dist, prod, stopped)`` (``dist`` the
+                 loop state's dist slot: a tensor or a pair) built by
                  :func:`fused_form`.  Each iteration then runs up to
                  ``fused_steps`` sweeps in ONE kernel launch and the loop
                  rebuilds the per-sweep accounting from the block's
@@ -309,6 +321,88 @@ def boolean_forms(adj, adj_pull, src_idx, dst_idx, *, n_pad: int, s: int,
 
 
 # --------------------------------------------------------------------------
+# counting semiring forms (shortest-path counting — Brandes stage 1)
+# --------------------------------------------------------------------------
+
+def counting_forms(adj, src_idx, dst_idx, *, n_pad: int = 0, s: int = 0,
+                   bn: int = 128, bk: int = 128,
+                   use_kernel: bool = False) -> Tuple[SweepForm, SweepForm]:
+    """(push, sparse) counting sweep forms.
+
+    The loop state's ``dist`` slot is the PAIR ``(dist int32, sigma
+    f32)``: ``dist`` is the boolean semiring's level array and
+    ``sigma[s, v]`` counts shortest s->v paths.  Every shortest path to a
+    node first reached at this sweep enters through the current frontier,
+    so one f32 product of frontier-masked sigma with the adjacency gives
+    the complete count:
+
+        cand[s, j] = sum_k (frontier ? sigma : 0)[s, k] * A[k, j]
+        new        = (cand > 0) & (dist == UNREACHED)
+        dist'      = new ? step : dist
+        sigma'     = new ? cand : sigma
+
+    Counts are f32: exact up to 2^24 paths per (source, node) pair.
+
+    ``adj`` is the dense int8 operand (``None`` when only sparse
+    dispatches).  The reference push converts it to f32 one column chunk
+    at a time (never whole); ``use_kernel`` swaps the push for the
+    counting kernel looked up in :mod:`repro_torch.kernels.registry`.
+    The sparse form is a scatter-ADD: one 1-D ``index_add_`` along the
+    node axis of the (n, S) transposed state.
+    """
+    if use_kernel:
+        K = kernel_registry.get(COUNTING).forms
+        bs = min(s, 128) if s else 128
+
+        def push(f, ds, p, step):
+            d, sg = ds
+            fs = torch.where(f != 0, sg, torch.zeros((), dtype=sg.dtype,
+                                                     device=sg.device))
+            new, nd, nsg = K["push"](fs, adj, d, sg, step, bs=bs, bn=bn,
+                                     bk=bk)
+            return new, (nd, nsg), p
+    else:
+        def push(f, ds, p, step):
+            d, sg = ds
+            fs = torch.where(f != 0, sg, torch.zeros((), dtype=sg.dtype,
+                                                     device=sg.device))
+            chunk = _pull_chunk_size(adj.shape[1], 512)
+            cand = torch.cat(
+                [fs @ adj[:, j0: j0 + chunk].to(torch.float32)
+                 for j0 in range(0, adj.shape[1], chunk)], dim=-1)
+            new = (cand > 0) & (d == UNREACHED)
+            return (new.to(torch.int8),
+                    (torch.where(new, torch.tensor(step, dtype=d.dtype,
+                                                   device=d.device), d),
+                     torch.where(new, cand, sg)), p)
+
+    src_l = src_idx.long()
+    dst_l = dst_idx.long()
+
+    def sparse(f, ds, p, step):
+        # edge-parallel scatter-ADD: each CSR lane contributes its source's
+        # sigma once (lanes are deduped), so the sum over in-lanes is the
+        # exact path count
+        d, sg = ds
+        shape = d.shape
+        f_t = f.reshape(-1, shape[-1]).t()
+        sg_t = sg.reshape(-1, shape[-1]).t()
+        contrib = torch.where(f_t[src_l] != 0, sg_t[src_l],
+                              torch.zeros((), dtype=sg.dtype,
+                                          device=sg.device))  # (m_pad, S')
+        cand = torch.zeros(sg_t.shape, dtype=sg.dtype, device=sg.device)
+        cand.index_add_(0, dst_l, contrib)
+        cand = cand.t().contiguous().reshape(shape)
+        new = (cand > 0) & (d == UNREACHED)
+        return (new.to(torch.int8),
+                (torch.where(new, torch.tensor(step, dtype=d.dtype,
+                                               device=d.device), d),
+                 torch.where(new, cand, sg)), p)
+
+    return push, sparse
+
+
+# --------------------------------------------------------------------------
 # shortest-path tree post-pass
 # --------------------------------------------------------------------------
 
@@ -345,7 +439,10 @@ _CALIBRATION_SWEEPS = 8
 _CALIBRATION_REPS = 5
 
 
-def _sync(t: torch.Tensor) -> None:
+def _sync(state) -> None:
+    """Wait for the card; ``state`` is a tensor or a tuple of tensors
+    (the counting (dist, sigma) pair)."""
+    t = state[0] if isinstance(state, tuple) else state
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
 
@@ -355,10 +452,12 @@ def time_sweep_forms(forms: Sequence[SweepForm], frontier, dist,
                      n_sweeps: int = _CALIBRATION_SWEEPS,
                      reps: int = _CALIBRATION_REPS) -> Tuple[float, ...]:
     """Median wall-clock seconds per sweep for each form on the given
-    mid-BFS state: ``n_sweeps`` chained sweeps per sample, ``dist``
-    refreshed every other sweep to keep the frontier alive."""
+    mid-BFS state: ``n_sweeps`` chained sweeps per sample, ``dist`` (a
+    tensor or the counting (dist, sigma) pair) refreshed every other
+    sweep to keep the frontier alive."""
     if parent is None:
-        parent = torch.zeros((1,), dtype=torch.int32, device=dist.device)
+        parent = torch.zeros((1,), dtype=torch.int32,
+                             device=frontier.device)
 
     def chained(form):
         fr, d, p = frontier, dist, parent

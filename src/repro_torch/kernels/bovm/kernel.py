@@ -55,39 +55,11 @@ def _lib() -> ctypes.CDLL:
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
-    """Launch on ``device``'s current stream; raise on a launch error."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        status = getattr(_lib(), name)(*args, stream)
-    if status != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {status}")
+    common.launch(_lib(), name, device, *args)
 
 
 def _ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
-
-
-def _check_cuda(**tensors) -> None:
-    """dtype / device / contiguity contract of a kernel launch."""
-    dev = None
-    for name, (t, dtype) in tensors.items():
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-        if not t.is_cuda:
-            raise ValueError(f"{name}: expected a CUDA tensor")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: expected a contiguous tensor")
-        if dev is not None and t.device != dev:
-            raise ValueError(f"{name}: on {t.device}, expected {dev}")
-        dev = t.device
-
-
-def _tile_rows(bs: int, limit: int) -> int:
-    """Largest power-of-two row group <= ``limit`` that divides ``bs``."""
-    for r in (32, 16, 8, 4, 2, 1):
-        if r <= limit and bs % r == 0:
-            return r
-    return 1
 
 
 def reset_launches() -> None:
@@ -113,9 +85,9 @@ def _check_packed(frontier_packed, adj_in_packed, dist, bs, bn, wk):
 
 
 def _packed_outputs(frontier_packed, adj_in_packed, dist):
-    _check_cuda(frontier_packed=(frontier_packed, torch.int32),
-                adj_in_packed=(adj_in_packed, torch.int32),
-                dist=(dist, torch.int32))
+    common.check_cuda(frontier_packed=(frontier_packed, torch.int32),
+                      adj_in_packed=(adj_in_packed, torch.int32),
+                      dist=(dist, torch.int32))
     return torch.empty(dist.shape, dtype=torch.int8, device=dist.device), \
         torch.empty_like(dist)
 
@@ -136,7 +108,7 @@ def packed_push_sweep(frontier_packed: torch.Tensor,
         return ref.packed_push_ref(frontier_packed, adj_in_packed, dist,
                                    step, f_occ=f_occ, o_occ=o_occ)
     new, dist_out = _packed_outputs(frontier_packed, adj_in_packed, dist)
-    rows = _tile_rows(bs, 32)
+    rows = common.tile_rows(bs, 32)
     _launch("dawn_packed_push_sweep", dist.device, _ptr(frontier_packed),
             _ptr(adj_in_packed), _ptr(dist), _ptr(new), _ptr(dist_out),
             _ptr(f_occ.contiguous()), _ptr(o_occ.contiguous()),
@@ -155,7 +127,7 @@ def packed_pull_sweep(frontier_packed: torch.Tensor,
     if not dist.is_cuda:
         return ref.packed_pull_ref(frontier_packed, adj_in_packed, dist, step)
     new, dist_out = _packed_outputs(frontier_packed, adj_in_packed, dist)
-    rows = _tile_rows(bs, 32)
+    rows = common.tile_rows(bs, 32)
     _launch("dawn_packed_pull_sweep", dist.device, _ptr(frontier_packed),
             _ptr(adj_in_packed), _ptr(dist), _ptr(new), _ptr(dist_out),
             s, n, w, rows, bs, bn, int(step))
@@ -204,9 +176,9 @@ def fused_boolean_multisweep(frontier: torch.Tensor,
     if not dist.is_cuda:
         return ref.fused_boolean_multisweep_ref(frontier, adj_in_packed,
                                                 dist, step, n_run)
-    _check_cuda(frontier=(frontier, torch.int8),
-                adj_in_packed=(adj_in_packed, torch.int32),
-                dist=(dist, torch.int32))
+    common.check_cuda(frontier=(frontier, torch.int8),
+                      adj_in_packed=(adj_in_packed, torch.int32),
+                      dist=(dist, torch.int32))
     fp = pack_bits(frontier != 0)
     smem = fused_smem_bytes(n)
     if smem > common.SMEM_BUDGET_BYTES:
@@ -249,9 +221,9 @@ def fused_sweep(frontier: torch.Tensor, adj: torch.Tensor, dist: torch.Tensor,
     if not dist.is_cuda:
         return ref.sweep_ref(frontier, adj, dist, step, f_occ=f_occ,
                              o_occ=o_occ)
-    _check_cuda(frontier=(frontier, torch.int8), adj=(adj, torch.int8),
-                dist=(dist, torch.int32))
-    tm = _tile_rows(bs, 32)
+    common.check_cuda(frontier=(frontier, torch.int8),
+                      adj=(adj, torch.int8), dist=(dist, torch.int32))
+    tm = common.tile_rows(bs, 32)
     if tm < 8:
         raise ValueError(f"the kernel needs bs % 8 == 0, got bs={bs}")
     new = torch.empty((s, n), dtype=torch.int8, device=dist.device)

@@ -19,22 +19,17 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..common import expand_table
+
 # bound on one chunk's broadcast intermediate, in elements
 _CHUNK_ELEMS = 1 << 25
-
-
-def _expand(table: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
-    """(gi, gj) tile table -> (rows, cols) elementwise mask."""
-    gi, gj = table.shape
-    return table.repeat_interleave(rows // gi, 0) \
-                .repeat_interleave(cols // gj, 1)
 
 
 def _epilogue(hits: torch.Tensor, dist: torch.Tensor, step: int,
               o_occ: Optional[torch.Tensor]):
     new = hits & (dist < 0)
     if o_occ is not None:
-        new &= _expand(o_occ, *dist.shape)
+        new &= expand_table(o_occ, *dist.shape)
     return new.to(torch.int8), torch.where(new, torch.tensor(
         int(step), dtype=dist.dtype, device=dist.device), dist)
 
@@ -77,7 +72,7 @@ def packed_push_ref(frontier_packed: torch.Tensor,
     """Bit-packed push sweep (K1): the pull product, gated by the push
     kernel's occupancy tables f_occ (gi, gk) and o_occ (gi, gj)."""
     if f_occ is not None:
-        frontier_packed = frontier_packed * _expand(
+        frontier_packed = frontier_packed * expand_table(
             f_occ, *frontier_packed.shape)
     return _epilogue(word_hits(frontier_packed, adj_in_packed), dist, step,
                      o_occ)
@@ -94,7 +89,7 @@ def sweep_ref(frontier: torch.Tensor, adj: torch.Tensor, dist: torch.Tensor,
     2^24), chunked over destination columns.
     """
     if f_occ is not None:
-        frontier = frontier * _expand(f_occ, *frontier.shape)
+        frontier = frontier * expand_table(f_occ, *frontier.shape)
     f = frontier.to(torch.float32)
     k, n = adj.shape
     chunk = max(1, _CHUNK_ELEMS // max(k, 1))

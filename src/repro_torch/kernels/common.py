@@ -13,6 +13,7 @@ budget.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -47,6 +48,14 @@ def block_any(mask: torch.Tensor, gi: int, bi: int, gj: int, bj: int
     return mask.reshape(gi, bi, gj, bj).any(dim=3).any(dim=1)
 
 
+def expand_table(table: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """(gi, gj) tile table -> (rows, cols) elementwise mask: how the plain
+    versions apply a kernel's occupancy gate."""
+    gi, gj = table.shape
+    return table.repeat_interleave(rows // gi, 0) \
+                .repeat_interleave(cols // gj, 1)
+
+
 def check_push_tiles(s: int, n: int, bs: int, bn: int, bk: int,
                      k: Optional[int] = None) -> None:
     """Tile divisibility contract shared by the push-style kernels.
@@ -55,3 +64,43 @@ def check_push_tiles(s: int, n: int, bs: int, bn: int, bk: int,
     if s % bs or n % bn or k % bk:
         raise ValueError(f"tiles do not divide the shapes: "
                          f"{(s, n, k)} vs {(bs, bn, bk)}")
+
+
+# --------------------------------------------------------------------------
+# launch helpers shared by the kernel wrappers
+# --------------------------------------------------------------------------
+
+def check_cuda(**tensors) -> None:
+    """dtype / device / contiguity / 16-byte alignment contract of a
+    kernel launch: ``name=(tensor, dtype)``."""
+    dev = None
+    for name, (t, dtype) in tensors.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+        if not t.is_cuda:
+            raise ValueError(f"{name}: expected a CUDA tensor")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous tensor")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: expected a 16-byte aligned tensor")
+        if dev is not None and t.device != dev:
+            raise ValueError(f"{name}: on {t.device}, expected {dev}")
+        dev = t.device
+
+
+def tile_rows(bs: int, limit: int) -> int:
+    """Largest power-of-two row group <= ``limit`` that divides ``bs``."""
+    for r in (32, 16, 8, 4, 2, 1):
+        if r <= limit and bs % r == 0:
+            return r
+    return 1
+
+
+def launch(lib: ctypes.CDLL, name: str, device: torch.device, *args) -> None:
+    """Call C entry point ``name`` of ``lib`` with ``args`` and
+    ``device``'s current stream; raise on a non-zero launch status."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = getattr(lib, name)(*args, stream)
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {status}")

@@ -1,0 +1,173 @@
+"""Wrappers of the counting sweep kernels (``csrc/counting.cu``).
+
+The port's counterpart of ``repro/kernels/counting/kernel.py``: the same
+two entry points with the JAX signatures, tile keywords and divisibility
+checks.
+
+  fused_counting_sweep       K5 — masked f32 counting push, gated by
+                             f_occ / o_occ -> (new, dist, sigma)
+  fused_counting_multisweep  K6 — up to ``n_run`` counting sweeps per
+                             launch -> (new, (dist, sigma), prod, stopped)
+
+For tensors on the CPU each wrapper computes its plain version
+(``ref.py``).  For tensors on the card it checks dtype, shape, contiguity
+and alignment, allocates the outputs and scratch, launches its kernel on
+the current stream and raises on a non-zero launch status; it never falls
+back.  The library is built from source on first launch
+(``kernels/_build.py``).
+
+Each wrapper counts its launches in its ``launches`` attribute (one per
+kernel launch, nothing on the CPU path); :func:`reset_launches` zeroes
+them.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from .. import _build, common
+from . import ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "counting.cu"
+
+FUSED_ROWS = 1          # source rows per K6 block (<= 8), passed to the kernel
+LIST_CAP = 4096         # K6: active-k list entries (static shared memory)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "dawn_counting_sweep": [_P] * 9 + [_I] * 8 + [_P],
+    "dawn_fused_counting_multisweep": [_P] * 12 + [_I] * 6 + [_P],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(SOURCE)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def reset_launches() -> None:
+    for fn in (fused_counting_sweep, fused_counting_multisweep):
+        fn.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K5: the counting push
+# --------------------------------------------------------------------------
+
+def fused_counting_sweep(fsigma: torch.Tensor, adj: torch.Tensor,
+                         dist: torch.Tensor, sigma: torch.Tensor, step, *,
+                         bs: int = 128, bn: int = 128, bk: int = 128):
+    """One fused counting sweep (K5).  fsigma (S, k) f32 — the
+    frontier-masked path counts (``where(frontier, sigma, 0)``), adj
+    (k, n) int8, dist (S, n) int32, sigma (S, n) f32.  S % bs == 0,
+    n % bn == 0, k % bk == 0; on the card also bn % 128 == 0 and
+    bk % 8 == 0.  Returns (new int8, dist int32, sigma f32).  k-blocks
+    with no positive fsigma (f_occ) and output tiles with no unreached
+    target (o_occ) are skipped; both skips are inert."""
+    s, k = fsigma.shape
+    ka, n = adj.shape
+    if ka != k or dist.shape != (s, n) or sigma.shape != (s, n):
+        raise ValueError(f"shapes: {tuple(fsigma.shape)}, {tuple(adj.shape)}"
+                         f", {tuple(dist.shape)}, {tuple(sigma.shape)}")
+    common.check_push_tiles(s, n, bs, bn, bk, k=k)
+    gi, gj, gk = s // bs, n // bn, k // bk
+    f_occ = common.block_any(fsigma > 0, gi, bs, gk, bk)
+    o_occ = common.block_any(dist < 0, gi, bs, gj, bn)
+    if not dist.is_cuda:
+        return ref.counting_sweep_ref(fsigma, adj, dist, sigma, step,
+                                      f_occ=f_occ, o_occ=o_occ)
+    common.check_cuda(fsigma=(fsigma, torch.float32), adj=(adj, torch.int8),
+                      dist=(dist, torch.int32), sigma=(sigma, torch.float32))
+    if bn % 128 or bk % 8:
+        raise ValueError(f"the kernel needs bn % 128 == 0 and bk % 8 == 0, "
+                         f"got bn={bn}, bk={bk}")
+    tm = common.tile_rows(bs, 16)
+    new = torch.empty((s, n), dtype=torch.int8, device=dist.device)
+    dist_out = torch.empty_like(dist)
+    sig_out = torch.empty_like(sigma)
+    common.launch(_lib(), "dawn_counting_sweep", dist.device,
+                  fsigma.data_ptr(), adj.data_ptr(), dist.data_ptr(),
+                  sigma.data_ptr(), new.data_ptr(), dist_out.data_ptr(),
+                  sig_out.data_ptr(), f_occ.contiguous().data_ptr(),
+                  o_occ.contiguous().data_ptr(), s, n, k, tm, bs, bn, bk,
+                  int(step))
+    fused_counting_sweep.launches += 1
+    return new, dist_out, sig_out
+
+
+# --------------------------------------------------------------------------
+# K6: fused multi-sweep
+# --------------------------------------------------------------------------
+
+def fused_smem_bytes(n: int, rows: int = FUSED_ROWS) -> int:
+    """Shared memory of one K6 block of ``rows`` source rows at padded
+    node count ``n``: the rows' packed unreached set (dynamic, passed at
+    launch) plus the active-k list and its counter (static)."""
+    return 4 * rows * max(n // 32, 1) + 4 * LIST_CAP + 4
+
+
+def fused_counting_multisweep(frontier: torch.Tensor, adj: torch.Tensor,
+                              state, step, n_run, *, bs: int = 128,
+                              max_sweeps: int = 1):
+    """Run up to ``n_run`` counting sweeps (``n_run <= max_sweeps``) in ONE
+    kernel launch (K6).  frontier (S, n) int8, adj (n, n) int8, ``state``
+    the (dist int32, sigma f32) pair, ``step`` the sweeps already executed
+    (sweep t writes distance step + 1 + t).
+
+    Returns (new int8, (dist, sigma), prod int32 scalar, stopped bool
+    scalar): ``prod`` is the most productive sweeps of any row tile and
+    ``stopped`` whether every tile converged, so the loop driver's
+    accounting is ``executed = stopped ? prod + 1 : n_run``.  The kernel
+    runs FUSED_ROWS source rows per block whatever ``bs`` is; rows evolve
+    independently, so no result depends on the tile."""
+    dist, sigma = state
+    s, n = frontier.shape
+    if adj.shape != (n, n) or dist.shape != (s, n) or sigma.shape != (s, n):
+        raise ValueError(f"shapes: {tuple(frontier.shape)}, "
+                         f"{tuple(adj.shape)}, {tuple(dist.shape)}, "
+                         f"{tuple(sigma.shape)}")
+    if s % bs or n % 128:
+        raise ValueError(f"tiles do not divide the shapes: {(s, n)} vs "
+                         f"bs={bs}")
+    n_run = int(n_run)
+    if not 0 <= n_run <= max_sweeps:
+        raise ValueError(f"n_run={n_run} outside [0, {max_sweeps}]")
+    if not dist.is_cuda:
+        return ref.fused_counting_multisweep_ref(frontier, adj, dist, sigma,
+                                                 step, n_run)
+    common.check_cuda(frontier=(frontier, torch.int8), adj=(adj, torch.int8),
+                      dist=(dist, torch.int32), sigma=(sigma, torch.float32))
+    rows = common.tile_rows(s, FUSED_ROWS)
+    smem = fused_smem_bytes(n, rows)
+    if smem > common.SMEM_BUDGET_BYTES:
+        raise ValueError(f"n={n}: the fused kernel's shared memory "
+                         f"({smem} B) exceeds the budget")
+    tiles = s // rows
+    dev = dist.device
+    new = torch.empty((s, n), dtype=torch.int8, device=dev)
+    dist_out = torch.empty_like(dist)
+    sig_out = torch.empty_like(sigma)
+    fa = torch.empty((s, n), dtype=torch.int8, device=dev)
+    fb = torch.empty((s, n), dtype=torch.int8, device=dev)
+    cand = torch.zeros((s, n), dtype=torch.float32, device=dev)
+    prod = torch.empty(tiles, dtype=torch.int32, device=dev)
+    stop = torch.empty(tiles, dtype=torch.int32, device=dev)
+    common.launch(_lib(), "dawn_fused_counting_multisweep", dev,
+                  frontier.data_ptr(), adj.data_ptr(), dist.data_ptr(),
+                  sigma.data_ptr(), new.data_ptr(), dist_out.data_ptr(),
+                  sig_out.data_ptr(), fa.data_ptr(), fb.data_ptr(),
+                  cand.data_ptr(), prod.data_ptr(), stop.data_ptr(), s, n,
+                  rows, 4 * rows * (n // 32), int(step), n_run)
+    fused_counting_multisweep.launches += 1
+    return new, (dist_out, sig_out), prod.max(), stop.min() > 0
+
+
+reset_launches()

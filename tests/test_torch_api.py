@@ -1,7 +1,8 @@
-"""The port's facade against ``repro.prepare``, the routes it does not
-port yet, the device rule, and the package boundaries: no JAX or
-``repro`` import anywhere in the port, one loop driver, and the core
-reaching its kernels only through the registry."""
+"""The port's facade against ``repro.prepare`` (boolean and counting
+semirings, centrality), the routes it does not port yet, the device
+rule, and the package boundaries: no JAX or ``repro`` import anywhere in
+the port, one loop driver, and the core reaching its kernels only
+through the registry."""
 import ast
 import pathlib
 
@@ -64,18 +65,64 @@ def test_facade_options_object(graphs):
         repro_torch.prepare(tg, options=opts, device="cpu", mode="push")
 
 
+@pytest.mark.parametrize("opts", [
+    dict(use_kernel=False, mode="sparse"),
+    dict(use_kernel=True, source_batch=16),
+    dict(use_kernel=True, mode="push", fused_steps=-1),
+    dict(mode="pull", use_kernel=False),     # pull: counting takes auto
+])
+def test_facade_counting_matches_repro(graphs, opts):
+    """``apsp(semiring="counting")`` and ``sssp(semiring="counting")``
+    reach the counting engine, bit-identical to ``repro``."""
+    jg, tg = graphs
+    hj = repro.prepare(jg, **opts)
+    ht = repro_torch.prepare(tg, device="cpu", **opts)
+    sources = [5, 0, 149, 77]
+    rj = hj.apsp(sources, semiring="counting")
+    rt = ht.apsp(sources, semiring="counting")
+    np.testing.assert_array_equal(np.asarray(rj.dist), rt.dist.numpy())
+    np.testing.assert_array_equal(np.asarray(rj.sigma), rt.sigma.numpy())
+    assert int(rj.sweeps) == rt.sweeps
+    if opts.get("mode", "auto") != "pull":   # auto + no kernel: wall clock
+        np.testing.assert_array_equal(np.asarray(rj.direction_counts),
+                                      rt.direction_counts.numpy())
+    np.testing.assert_array_equal(hj.sssp(42, semiring="counting"),
+                                  ht.sssp(42, semiring="counting").numpy())
+
+
+@pytest.mark.parametrize("measures", [
+    ("closeness", "harmonic", "eccentricity", "betweenness"),
+    ("eccentricity",)])
+def test_facade_centrality_matches_repro(graphs, measures):
+    jg, tg = graphs
+    sources = np.arange(0, 150, 9)
+    rj = repro.prepare(jg, use_kernel=True).centrality(sources,
+                                                        measures=measures)
+    rt = repro_torch.prepare(tg, device="cpu", use_kernel=True).centrality(
+        sources, measures=measures)
+    np.testing.assert_array_equal(rj.eccentricity, rt.eccentricity)
+    assert (rj.radius, rj.diameter, int(rj.sweeps)) == \
+        (rt.radius, rt.diameter, rt.sweeps)
+    assert float(rj.sigma_checksum) == rt.sigma_checksum
+    if "betweenness" in measures:
+        np.testing.assert_array_equal(rj.closeness, rt.closeness)
+        np.testing.assert_allclose(rt.harmonic, rj.harmonic, rtol=1e-6)
+        np.testing.assert_allclose(rt.betweenness, rj.betweenness,
+                                   rtol=1e-6, atol=1e-9)
+    else:
+        assert rt.betweenness is None and rt.closeness is None
+
+
 def test_unported_routes_raise(graphs):
     _, tg = graphs
     h = repro_torch.prepare(tg, device="cpu")
-    for semiring, item in (("tropical", "item 7"), ("counting", "item 6")):
-        with pytest.raises(NotImplementedError, match=item):
-            h.apsp([0], semiring=semiring)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        h.apsp([0], semiring="tropical")
     with pytest.raises(ValueError, match="unknown semiring"):
         h.apsp([0], semiring="min_label")
     calls = {
         "item 11": lambda: h.apsp([0], mesh=object()),
         "item 10": lambda: h.apsp([0], checkpoint_dir="ckpt"),
-        "item 6": h.centrality,
         "item 8": h.incremental,
         "item 9": h.serve,
         "item 12": h.tune,
@@ -83,6 +130,8 @@ def test_unported_routes_raise(graphs):
     for item, call in calls.items():
         with pytest.raises(NotImplementedError, match=item):
             call()
+    with pytest.raises(NotImplementedError, match="item 11"):
+        h.centrality([0], mesh=object())
     with pytest.raises(NotImplementedError, match="item 7"):
         repro_torch.prepare(tg, weights=np.ones(tg.m_pad), device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
@@ -117,8 +166,26 @@ def test_build_dir_checkout_and_installed(tmp_path, monkeypatch):
 # package boundaries
 # --------------------------------------------------------------------------
 
+# the modules each slice added: the boundary tests below must scan them
+SLICE_MODULES = (
+    "core/engine.py", "core/sweep.py", "kernels/bovm/kernel.py",
+    "kernels/bovm/ref.py",
+    "core/bovm.py", "core/sovm.py", "core/sssp.py", "core/centrality.py",
+    "kernels/counting/__init__.py", "kernels/counting/kernel.py",
+    "kernels/counting/ref.py",
+)
+
+
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_boundary_tests_scan_every_slice_module():
+    files = set(_port_files())
+    for rel in SLICE_MODULES:
+        assert PORT / rel in files, rel
+    cores = {p.name for p in (PORT / "core").rglob("*.py")}
+    assert {"bovm.py", "sovm.py", "sssp.py", "centrality.py"} <= cores
 
 
 def _imports(path: pathlib.Path):
@@ -164,6 +231,8 @@ def test_one_loop_driver_in_sweep():
 
 
 def test_core_reaches_kernels_through_the_registry():
+    from repro_torch.kernels import registry
+    assert set(registry.available()) >= {"boolean", "counting"}
     for path in sorted((PORT / "core").rglob("*.py")):
         for mod in _imports(path):
             if mod.startswith("repro_torch.kernels"):

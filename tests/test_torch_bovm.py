@@ -56,7 +56,7 @@ def _eq(jax_out, torch_out):
 
 def test_registry_boolean_set():
     ks = registry.get("boolean")
-    assert registry.available() == ("boolean",)
+    assert registry.available() == ("boolean", "counting")
     assert set(ks.forms) == {"push", "push_f32", "pull"}
     assert ks.forms["push"] is bovm.packed_push_sweep
     assert ks.forms["pull"] is bovm.packed_pull_sweep

@@ -1,0 +1,271 @@
+"""The port's counting semiring against the JAX package on the CPU: the two
+counting kernels' plain versions (through the port's wrappers, on CPU
+tensors) against the Pallas kernels in interpret mode, the push form
+against the sparse form, and the counting engine's ``dist``, ``sigma``,
+``sweeps`` and ``direction_counts`` bit-identical to ``repro`` in every
+pinned mode, under the dynamic switch and on the kernel path with and
+without fused blocks.  Path counts are integer-valued f32 below 2^24 on
+every graph here, so any summation order gives the same bits."""
+import importlib
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from oracles import adversarial_families, bfs_dists, bfs_sigmas
+from repro.graph import generators as jgen
+from repro.graph.csr import CSRGraph as JCSR
+from repro.kernels.counting import kernel as jkern
+from repro.core import sweep as jsweep
+from repro_torch.convert import csr_from_arrays
+from repro_torch.core import sweep as tsweep
+from repro_torch.kernels import counting as tkern
+from repro_torch.kernels import registry
+
+jcent = importlib.import_module("repro.core.centrality")
+tcent = importlib.import_module("repro_torch.core.centrality")
+
+ARRAYS = ("indptr", "indices", "src", "dst", "indptr_t", "indices_t")
+FAMILIES = {name: (src, dst, n) for name, src, dst, n in
+            adversarial_families()}
+
+CONFIGS = {
+    "push": dict(mode="push", use_kernel=False),
+    "sparse": dict(mode="sparse", use_kernel=False),
+    "dynamic": dict(use_kernel=True, dynamic=True),
+    "kernel_push": dict(mode="push", use_kernel=True, fused_steps=0),
+    "fused3": dict(mode="push", use_kernel=True, fused_steps=3),
+    "fused_all": dict(use_kernel=True, fused_steps=-1),
+}
+# configs that run the Pallas kernels in interpret mode on every family;
+# the rest run on a ragged subset to bound the time
+EVERY_FAMILY = ("push", "sparse", "dynamic", "fused_all")
+SUBSET = ("random_ragged", "path", "two_components", "clique")
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def carry(jg):
+    """The JAX graph's lanes, carried across to the port (CPU)."""
+    return csr_from_arrays({k: np.asarray(getattr(jg, k)) for k in ARRAYS},
+                           n_nodes=jg.n_nodes, n_edges=jg.n_edges,
+                           m_pad=jg.m_pad, device="cpu")
+
+
+def _state(seed, s, n, *, density=0.1, visited=0.3):
+    """A consistent mid-run counting state: sigma > 0 exactly where
+    visited, a frontier inside the visited set."""
+    rng = np.random.default_rng(seed)
+    d = np.where(rng.random((s, n)) < visited, 1, -1).astype(np.int32)
+    sg = np.where(d >= 0, rng.integers(1, 6, (s, n)), 0).astype(np.float32)
+    f = ((rng.random((s, n)) < density) & (d >= 0)).astype(np.int8)
+    return f, d, sg
+
+
+def _same(want, got):
+    for a, b in zip(want, got):
+        if isinstance(a, tuple):
+            _same(a, b)
+        else:
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+# --------------------------------------------------------------------------
+# K5 / K6: plain versions against the Pallas kernels (interpret mode)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("s,n,bs,bk,skip", [
+    (16, 256, 8, 128, "none"),
+    (32, 256, 16, 128, "k_block"),      # a frontier k-block is empty
+    (16, 384, 16, 128, "settled"),      # an output tile is all settled
+])
+def test_counting_sweep_matches_pallas(s, n, bs, bk, skip):
+    rng = np.random.default_rng(n + s)
+    adj = (rng.random((n, n)) < 0.05).astype(np.int8)
+    f, d, sg = _state(s, s, n)
+    if skip == "k_block":
+        f[:, 128:256] = 0
+    if skip == "settled":
+        d[:bs, 128:256] = 2
+        sg[:bs, 128:256] = 3.0
+    fs = np.where(f != 0, sg, 0).astype(np.float32)
+    want = jkern.fused_counting_sweep(
+        jnp.asarray(fs), jnp.asarray(adj), jnp.asarray(d), jnp.asarray(sg),
+        5, bs=bs, bn=128, bk=bk, interpret=True)
+    got = tkern.fused_counting_sweep(
+        torch.from_numpy(fs), torch.from_numpy(adj), torch.from_numpy(d),
+        torch.from_numpy(sg), 5, bs=bs, bn=128, bk=bk)
+    _same(want, got)
+    assert tkern.fused_counting_sweep.launches == 0     # CPU: no launch
+
+
+@pytest.mark.parametrize("n_run", [0, 1, 2, 40])
+def test_counting_multisweep_matches_pallas(n_run):
+    """n_run = 0 (inert), 1 and 2 (not converging), 40 (converges
+    mid-block): the same new / (dist, sigma) / prod / stopped."""
+    jg = jgen.watts_strogatz(120, 4, 0.1, seed=7)
+    n = jg.n_padded()
+    adj = np.array(jg.to_dense_padded(n))
+    s = 16
+    f = np.zeros((s, n), np.int8)
+    f[np.arange(s), np.arange(s) * 7] = 1
+    d = np.where(f != 0, 0, -1).astype(np.int32)
+    d[:, jg.n_nodes:] = 0
+    sg = (f != 0).astype(np.float32)
+    kw = dict(bs=8, max_sweeps=max(n_run, 1))
+    want = jkern.fused_counting_multisweep(
+        jnp.asarray(f), jnp.asarray(adj), (jnp.asarray(d), jnp.asarray(sg)),
+        0, n_run, interpret=True, **kw)
+    got = tkern.fused_counting_multisweep(
+        torch.from_numpy(f), torch.from_numpy(adj),
+        (torch.from_numpy(d), torch.from_numpy(sg)), 0, n_run, **kw)
+    _same(want[:2], got[:2])
+    assert int(want[2]) == int(got[2])
+    assert bool(want[3]) == bool(got[3])
+    if n_run == 0:
+        assert int(got[2]) == 0 and not bool(got[3])
+        assert not got[0].any()
+    if n_run == 40:
+        assert bool(got[3]) and 0 < int(got[2]) < n_run
+
+
+def test_wrappers_validate_shapes_and_tiles():
+    z8 = torch.zeros((8, 128), dtype=torch.int8)
+    zf = torch.zeros((8, 128), dtype=torch.float32)
+    zi = torch.zeros((8, 128), dtype=torch.int32)
+    a = torch.zeros((128, 128), dtype=torch.int8)
+    with pytest.raises(ValueError, match="shapes"):
+        tkern.fused_counting_sweep(zf, a[:64], zi, zf, 1, bs=8)
+    with pytest.raises(ValueError, match="tiles do not divide"):
+        tkern.fused_counting_sweep(zf, a, zi, zf, 1, bs=16)
+    with pytest.raises(ValueError, match="tiles do not divide"):
+        tkern.fused_counting_multisweep(z8, a, (zi, zf), 0, 1, bs=16)
+    with pytest.raises(ValueError, match="n_run"):
+        tkern.fused_counting_multisweep(z8, a, (zi, zf), 0, 3, bs=8,
+                                        max_sweeps=2)
+
+
+def test_counting_registry_and_fused_gate():
+    ks = registry.get("counting")
+    assert ks.forms["push"] is tkern.fused_counting_sweep
+    assert ks.fused_forms["push"] is tkern.fused_counting_multisweep
+    # one K6 block holds its rows' packed unreached set and the active-k
+    # list: the gate admits the full-width n_pad the JAX VMEM gate refuses
+    assert ks.smem_bytes(form="fused", n=65_664) == \
+        4 * tkern.kernel.FUSED_ROWS * 2_052 + 4 * 4096 + 4
+    assert tsweep.resolve_fused_steps(
+        "counting", "push", fused_steps=-1, max_steps=9, use_kernel=True,
+        n_pad=65_664, bs=128) == 9
+    assert tsweep.resolve_fused_steps(
+        "counting", "push", fused_steps=4, max_steps=9, use_kernel=True,
+        n_pad=65_664, bs=128, budget=1024) is None
+    with pytest.raises(ValueError, match="only the fused form"):
+        ks.smem_bytes(form="push", n=256)
+
+
+# --------------------------------------------------------------------------
+# the counting forms
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("family", ["random_ragged", "duplicate_edges",
+                                    "star_in"])
+def test_counting_push_matches_sparse_and_jax(family):
+    src, dst, n = FAMILIES[family]
+    jg = JCSR.from_edges(src, dst, n)
+    tg = carry(jg)
+    n_pad = jg.n_padded()
+    adj = np.asarray(jg.to_dense_padded(n_pad))
+    f, d, sg = _state(n, 16, n_pad, density=0.3)
+    d[:, n:] = 0
+    sg[:, n:] = 0
+    f[:, n:] = 0
+    jforms = jsweep.counting_forms(jnp.asarray(adj), jg.src, jg.dst,
+                                   n_pad=n_pad, s=16)
+    tforms = tsweep.counting_forms(torch.from_numpy(adj), tg.src, tg.dst,
+                                   n_pad=n_pad, s=16)
+    p = torch.zeros(1, dtype=torch.int32)
+    outs = []
+    for jf, tf in zip(jforms, tforms):
+        want = jf(jnp.asarray(f), (jnp.asarray(d), jnp.asarray(sg)),
+                  jnp.zeros(1, jnp.int32), 3)
+        got = tf(torch.from_numpy(f), (torch.from_numpy(d),
+                                       torch.from_numpy(sg)), p, 3)
+        _same(want[:2], got[:2])
+        outs.append(got)
+    _same(tuple(o.numpy() for o in (outs[0][0],) + outs[0][1]),
+          (outs[1][0],) + outs[1][1])
+
+
+# --------------------------------------------------------------------------
+# the counting engine against repro
+# --------------------------------------------------------------------------
+
+def run_both(jg, sources, **kw):
+    rj = jcent.counting_apsp(jg, sources,
+                             config=jcent.CentralityConfig(**kw))
+    rt = tcent.counting_apsp(carry(jg), sources,
+                             config=tcent.CentralityConfig(**kw))
+    return rj, rt
+
+
+def assert_same(rj, rt):
+    np.testing.assert_array_equal(np.asarray(rj.dist), rt.dist.numpy())
+    np.testing.assert_array_equal(np.asarray(rj.sigma), rt.sigma.numpy())
+    assert int(rj.sweeps) == rt.sweeps
+    np.testing.assert_array_equal(np.asarray(rj.direction_counts),
+                                  rt.direction_counts.numpy())
+
+
+CASES = [(fam, cfg) for fam in sorted(FAMILIES) for cfg in CONFIGS
+         if cfg in EVERY_FAMILY or fam in SUBSET]
+
+
+@pytest.mark.parametrize("family,config", CASES)
+def test_counting_apsp_matches_jax(family, config):
+    src, dst, n = FAMILIES[family]
+    jg = JCSR.from_edges(src, dst, n)
+    sources = np.arange(n, dtype=np.int32)[::-1][: min(n, 24)]
+    rj, rt = run_both(jg, sources, source_batch=8, **CONFIGS[config])
+    assert_same(rj, rt)
+    np.testing.assert_array_equal(rt.dist.numpy(), bfs_dists(jg, sources))
+    np.testing.assert_array_equal(rt.sigma.numpy(), bfs_sigmas(jg, sources))
+
+
+def test_dynamic_switch_takes_both_forms():
+    """A graph and batch on which the counting cost model picks both
+    forms — the per-sweep choice itself (a strict >, ties to push) is
+    what must agree."""
+    jg = jgen.watts_strogatz(200, 6, 0.1, seed=3)
+    rj, rt = run_both(jg, np.arange(0, 200, 7), source_batch=32,
+                      use_kernel=True)
+    assert_same(rj, rt)
+    assert (rt.direction_counts > 0).sum() == 2
+
+
+def test_calibrated_path_and_blocks():
+    """The calibrated regime times the counting forms over the (dist,
+    sigma) pair; whatever form it pins, dist and sigma are the oracle's.
+    The block stream tiles and validates like the boolean engine's."""
+    jg = jgen.rmat(7, 4, directed=False, seed=2)
+    tg = carry(jg)
+    sources = np.arange(20, dtype=np.int32)
+    cfg = tcent.CentralityConfig(source_batch=8, use_kernel=False)
+    pg = tcent.prepare_graph(tg, device="cpu")
+    res = tcent.counting_apsp(pg, sources, config=cfg)
+    np.testing.assert_array_equal(res.dist.numpy(), bfs_dists(jg, sources))
+    np.testing.assert_array_equal(res.sigma.numpy(),
+                                  bfs_sigmas(jg, sources))
+    assert ("counting", 8, 128, 128, False) in pg.cost_cache
+    blocks = list(tcent.counting_apsp_blocks(pg, sources, config=cfg))
+    assert [len(b) for b, _, _, _ in blocks] == [8, 8, 4]
+    with pytest.raises(ValueError, match="empty"):
+        tcent.counting_apsp(pg, [], config=cfg)
+    with pytest.raises(ValueError, match="sources must be in"):
+        tcent.counting_apsp(pg, [jg.n_nodes], config=cfg)

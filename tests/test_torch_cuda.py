@@ -1,17 +1,18 @@
-"""The port's CUDA kernels on the card against their plain versions, and the
-engine's kernel path on the card against the CPU.  Needs an NVIDIA GPU
-and nvcc; without CUDA every test here skips.
+"""The port's CUDA kernels on the card against their plain versions, and
+the boolean and counting engines' kernel paths on the card against the
+CPU.  Needs an NVIDIA GPU and nvcc; without CUDA every test here skips.
 
-    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import pack_bits
+from repro_torch.core.centrality import CentralityConfig, counting_apsp
 from repro_torch.core.engine import EngineConfig, apsp_engine, prepare_graph
 from repro_torch.graph import generators as gen
-from repro_torch.kernels import bovm
+from repro_torch.kernels import bovm, counting
 
 pytestmark = pytest.mark.cuda
 
@@ -94,5 +95,72 @@ def test_engine_on_card_matches_cpu(cuda, opts):
     want = apsp_engine(prepare_graph(g, device="cpu"), sources, config=cfg)
     got = apsp_engine(prepare_graph(g, device=cuda), sources, config=cfg)
     assert torch.equal(want.dist, got.dist.cpu())
+    assert want.sweeps == got.sweeps
+    assert torch.equal(want.direction_counts, got.direction_counts)
+
+
+# --------------------------------------------------------------------------
+# the counting kernels (K5, K6) and the counting engine
+# --------------------------------------------------------------------------
+
+def _counting_start(g, s, n, seed):
+    rng = np.random.default_rng(seed)
+    src = torch.from_numpy(np.sort(rng.choice(g.n_nodes, s, replace=False)))
+    f = torch.zeros((s, n), dtype=torch.int8)
+    f[torch.arange(s), src] = 1
+    d = torch.where(f != 0, 0, -1).to(torch.int32)
+    d[:, g.n_nodes:] = 0
+    return f, d, (f != 0).to(torch.float32)
+
+
+@pytest.mark.parametrize("s,nodes,bs,rows", [(128, 500, 128, 1),
+                                             (16, 300, 16, 8),
+                                             (40, 900, 8, 2)])
+def test_counting_kernels_match_plain(cuda, monkeypatch, s, nodes, bs,
+                                      rows):
+    """K5 sweep by sweep from the sources, then K6 from the mid-run state
+    (n_run 0, 1, 3 and to the fixpoint, ``rows`` source rows per block):
+    bit-identical to the plain versions on the CPU."""
+    monkeypatch.setattr(counting.kernel, "FUSED_ROWS", rows)
+    g = gen.erdos_renyi(nodes, 5.0, seed=nodes, directed=False,
+                        device="cpu")
+    n = g.n_padded()
+    adj = g.to_dense_padded(n)
+    f, d, sg = _counting_start(g, s, n, nodes)
+    before = counting.fused_counting_sweep.launches
+    for step in (1, 2):
+        fs = torch.where(f != 0, sg, 0.0)
+        want = counting.fused_counting_sweep(fs, adj, d, sg, step, bs=bs)
+        got = counting.fused_counting_sweep(fs.to(cuda), adj.to(cuda),
+                                            d.to(cuda), sg.to(cuda), step,
+                                            bs=bs)
+        torch.cuda.synchronize()
+        _same(want, got)
+        f, d, sg = want
+    assert counting.fused_counting_sweep.launches == before + 2
+    for n_run in (0, 1, 3, 50):
+        kw = dict(bs=bs, max_sweeps=max(n_run, 1))
+        want = counting.fused_counting_multisweep(f, adj, (d, sg), 2, n_run,
+                                                  **kw)
+        got = counting.fused_counting_multisweep(
+            f.to(cuda), adj.to(cuda), (d.to(cuda), sg.to(cuda)), 2, n_run,
+            **kw)
+        torch.cuda.synchronize()
+        _same((want[0],) + want[1], (got[0],) + got[1])
+        assert int(want[2]) == int(got[2])
+        assert bool(want[3]) == bool(got[3])
+
+
+@pytest.mark.parametrize("opts", [dict(), dict(mode="push"),
+                                  dict(mode="sparse"), dict(fused_steps=-1),
+                                  dict(fused_steps=2)])
+def test_counting_engine_on_card_matches_cpu(cuda, opts):
+    g = gen.rmat(10, 8, directed=False, seed=2, device="cpu")
+    sources = np.arange(0, 1024, 5)
+    cfg = CentralityConfig(use_kernel=True, **opts)
+    want = counting_apsp(prepare_graph(g, device="cpu"), sources, config=cfg)
+    got = counting_apsp(prepare_graph(g, device=cuda), sources, config=cfg)
+    assert torch.equal(want.dist, got.dist.cpu())
+    assert torch.equal(want.sigma, got.sigma.cpu())
     assert want.sweeps == got.sweeps
     assert torch.equal(want.direction_counts, got.direction_counts)
