@@ -8,11 +8,15 @@ Builds the port's CUDA kernels from ``src/repro_torch`` (into
 ``repro_torch.prepare(graph).apsp(sources)`` on two graphs of 65,536
 nodes made by the port's own generators, then the counting engine
 (``apsp(sources, semiring="counting")``) and the centrality analytics
-(``prepare(graph).centrality(sources)``) on rmat16.  It checks distances
-against scipy's BFS, path counts against a float64 count on the host,
-betweenness against a float64 Brandes on the host, and holds every
-kernel bit-identical to its plain PyTorch version at full width.  One
-JSON line per phase; the last line is ``{"ok": true, "device": {...}}``.
+(``prepare(graph).centrality(sources)``) on rmat16, then the tropical
+(weighted) engine (``prepare(graph, weights=w).apsp(sources,
+semiring="tropical")``) on both graphs.  It checks distances against
+scipy's BFS, path counts against a float64 count on the host,
+betweenness against a float64 Brandes on the host, weighted distances
+against scipy's Dijkstra and a float32 Bellman-Ford replay on the host,
+and holds every kernel bit-identical to its plain PyTorch version at
+full width.  One JSON line per phase; the last line is
+``{"ok": true, "device": {...}}``.
 Any failure raises and the script exits non-zero.  Without CUDA, or
 outside a checkout of the repository, it exits non-zero at once.
 
@@ -25,6 +29,12 @@ Graphs:
            float32's 3.4e38 (phase ``grid256_counts`` prints a float64
            count), so the counting path runs on rmat16 alone, where every
            count stays below 2^24 (checked).
+
+Weights: one per CSR lane, ``integers(4, 33) / 8`` from the script's
+seed — dyadic values in [0.5, 4.0], the range ``bench_weighted`` draws
+from, so every path sum is an exact float32 and the weighted distances
+must EQUAL scipy's float64 Dijkstra.  The weighted runs take the same
+sources as the boolean ones (1,024 on rmat16, 128 on grid256).
 """
 from __future__ import annotations
 
@@ -66,6 +76,9 @@ REPLACES = {
     "fused_sweep": "src/repro/kernels/bovm/kernel.py:116",
     "fused_counting_sweep": "src/repro/kernels/counting/kernel.py:103",
     "fused_counting_multisweep": "src/repro/kernels/counting/kernel.py:184",
+    "fused_minplus_sweep": "src/repro/kernels/tropical/kernel.py:128",
+    "fused_minplus_multisweep": "src/repro/kernels/tropical/kernel.py:210",
+    "sparse_relax_sweep": "src/repro/kernels/tropical/kernel.py:302",
 }
 MULTI_SWEEP_NOTE = "no single PyTorch call computes a multi-sweep block"
 
@@ -81,10 +94,11 @@ def nvidia_smi() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
+def cuda_ms(torch, fn, reps: int, warm: bool = True) -> float:
     """Mean device time of ``fn`` over ``reps`` calls (CUDA events),
-    after one warm-up call."""
-    fn()
+    after one warm-up call unless ``warm`` is False."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -140,6 +154,51 @@ def host_betweenness(g, sources, dist, sigma):
     return bc
 
 
+def scipy_dijkstra(g, lanes, sources) -> np.ndarray:
+    """Directed float64 Dijkstra over the lane weights (scipy)."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import dijkstra
+    src, dst = g.edge_arrays_np()
+    mat = sp.csr_matrix((lanes[: g.n_edges].astype(np.float64), (src, dst)),
+                        shape=(g.n_nodes, g.n_nodes))
+    return dijkstra(mat, directed=True, indices=sources)
+
+
+def host_minplus(g, lanes, sources):
+    """Frontier-gated Bellman-Ford in float32 on the host (numpy): the
+    sweeps the tropical engine runs, replayed without the port.  Each
+    sweep relaxes the out-lanes of the improved set with one float32 add
+    and a min-scatter.  Returns (dist float32 (S, n), sweeps executed
+    including the last, empty one, and the degree sum of every sweep's
+    frontier in float64 — the engine's ``edges_touched``)."""
+    n = g.n_nodes
+    indptr = g.indptr.cpu().numpy().astype(np.int64)
+    dst = g.dst[: g.n_edges].cpu().numpy().astype(np.int64)
+    w = lanes[: g.n_edges]
+    deg = np.diff(indptr)
+    s = len(sources)
+    dist = np.full((s, n), np.inf, np.float32)
+    dist[np.arange(s), sources] = 0.0
+    front = dist == 0.0
+    sweeps, touched = 0, 0.0
+    while sweeps < n:
+        rows, nodes = np.nonzero(front)
+        cnt = deg[nodes]
+        touched += float(cnt.sum())
+        lane = np.repeat(indptr[nodes] - (np.cumsum(cnt) - cnt), cnt) \
+            + np.arange(int(cnt.sum()))
+        cand = np.repeat(dist[rows, nodes], cnt) + w[lane]
+        flat = dist.ravel().copy()
+        np.minimum.at(flat, np.repeat(rows, cnt) * n + dst[lane], cand)
+        nd = flat.reshape(s, n)
+        front = nd < dist
+        dist = nd
+        sweeps += 1
+        if not front.any():
+            break
+    return dist, sweeps, touched
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -156,9 +215,10 @@ def main() -> int:
     from repro_torch.core.frontier import pack_bits
     from repro_torch.graph import generators as gen
     from repro_torch.kernels import _build
-    from repro_torch.kernels import bovm, common, counting
+    from repro_torch.kernels import bovm, common, counting, tropical
     from repro_torch.kernels.bovm import ref as R
     from repro_torch.kernels.counting import ref as CR
+    from repro_torch.kernels.tropical import ref as TR
 
     # the plain versions and the library yardstick take full float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -166,9 +226,12 @@ def main() -> int:
                bovm.fused_boolean_multisweep, bovm.fused_sweep)
     ckernels = (counting.fused_counting_sweep,
                 counting.fused_counting_multisweep)
+    wkernels = (tropical.fused_minplus_sweep,
+                tropical.fused_minplus_multisweep,
+                tropical.sparse_relax_sweep)
     sources_of = {k.__name__: str(Path(sys.modules[k.__module__].SOURCE)
                                   .relative_to(ROOT))
-                  for k in kernels + ckernels}
+                  for k in kernels + ckernels + wkernels}
 
     smi = nvidia_smi()
     emit(phase="device", nvidia_smi=smi,
@@ -369,6 +432,104 @@ def main() -> int:
                                  f"counting path")
     launches.update(claunches)
 
+    # -- the weighted path: default, pinned dense / sparse, fused ------------
+    wrng = np.random.default_rng(SEED)
+    lanes_of = {name: (wrng.integers(4, 33, g.m_pad) / 8).astype(np.float32)
+                for name, g in graphs.items()}
+    wruns = {
+        "rmat16": {
+            "default": {},
+            "dense": dict(mode="dense", use_kernel=True),
+            "sparse": dict(mode="sparse", use_kernel=True),
+            "fused": dict(fused_steps=-1),
+        },
+        "grid256": {
+            "default": {},
+            "sparse": dict(mode="sparse", use_kernel=True),
+        },
+    }
+    tropical.reset_launches()
+    for name, runs_w in wruns.items():
+        g, lanes, wsrcs = graphs[name], lanes_of[name], srcs[name]
+        check = wsrcs[:: len(wsrcs) // N_CHECK][:N_CHECK]
+        want = scipy_dijkstra(g, lanes, check)
+        # the replayed check run: the default options on the checked
+        # sources alone, against the host's float32 Bellman-Ford
+        hdist, hsweeps, htouched = host_minplus(g, lanes, check)
+        if not np.array_equal(hdist.astype(np.float64), want):
+            raise AssertionError(f"{name}: the host replay differs from "
+                                 f"scipy Dijkstra")
+        h = repro_torch.prepare(g, weights=lanes)
+        res = h.apsp(check, semiring="tropical")
+        touched = float(res.edges_touched)
+        if not (np.array_equal(res.dist.cpu().numpy(), hdist)
+                and res.sweeps == hsweeps
+                and abs(touched - htouched) <= EDGES_RTOL * htouched):
+            raise AssertionError(f"weighted/{name}: dist, sweeps or "
+                                 f"edges_touched differ from the host "
+                                 f"replay ({res.sweeps} vs {hsweeps}, "
+                                 f"{touched} vs {htouched})")
+        emit(phase="weighted_check", graph=name, sources=int(len(check)),
+             sweeps=res.sweeps, host_sweeps=hsweeps,
+             direction_counts=res.direction_counts.tolist(),
+             edges_touched=touched, edges_touched_f64=htouched)
+        del h, res
+        wres = {}
+        for run, opts in runs_w.items():
+            h = repro_torch.prepare(g, weights=lanes, **opts)
+            if run != "sparse":
+                h.prepared_weighted().wdense     # operand build = set-up
+            before = [k.launches for k in wkernels]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = h.apsp(wsrcs, semiring="tropical")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            del h
+            rows = torch.from_numpy(np.searchsorted(wsrcs, check)).cuda()
+            got = res.dist[rows].cpu().numpy().astype(np.float64)
+            if not np.array_equal(got, want):
+                raise AssertionError(f"weighted/{name}/{run}: dist differs "
+                                     f"from scipy Dijkstra")
+            if not torch.isfinite(res.edges_touched):
+                raise AssertionError(f"weighted/{name}/{run}: "
+                                     f"edges_touched")
+            wres[run] = res
+            emit(phase="weighted", graph=name, run=run, options=opts,
+                 sources=int(len(wsrcs)), seconds=wall,
+                 sweeps=res.sweeps,
+                 direction_counts=res.direction_counts.tolist(),
+                 edges_touched=float(res.edges_touched),
+                 launches={k.__name__: k.launches - b
+                           for k, b in zip(wkernels, before)},
+                 dist_checked_rows=int(len(check)))
+        base = wres["default"]
+        for run, r in wres.items():
+            if not torch.equal(r.dist, base.dist):
+                raise AssertionError(f"weighted/{name}/{run}: dist differs "
+                                     f"from the default run")
+            # the per-sweep runs see the same frontiers in the same order
+            if run != "fused" and float(r.edges_touched) != \
+                    float(base.edges_touched):
+                raise AssertionError(f"weighted/{name}/{run}: "
+                                     f"edges_touched differs from the "
+                                     f"default run")
+        if "fused" in wres:
+            per, fused = wres["dense"], wres["fused"]
+            if per.sweeps != fused.sweeps or not torch.equal(
+                    per.direction_counts, fused.direction_counts):
+                raise AssertionError(f"weighted/{name}: fused accounting "
+                                     f"differs from the pinned dense run")
+        del wres, base, r, res
+        torch.cuda.empty_cache()
+    wlaunches = {k.__name__: k.launches for k in wkernels}
+    emit(phase="weighted_path", launches=wlaunches)
+    for k in wkernels:
+        if wlaunches[k.__name__] < 1:
+            raise AssertionError(f"{k.__name__} never launched on the "
+                                 f"weighted path")
+    launches.update(wlaunches)
+
     # -- each kernel against its plain version, full width -------------------
     pg = repro_torch.prepare(graphs["rmat16"]).prepared()
     at, n_pad = pg.adj_pull, pg.n_pad
@@ -425,21 +586,23 @@ def main() -> int:
             yield from (flat(o) if isinstance(o, tuple) else (o,))
 
     def record(name, kern, plain, outs_k, outs_p, bytes_, ops, rate,
-               reps, lib, **extra):
+               reps, lib, plain_warm=True, **extra):
         outs_k, outs_p = list(flat(outs_k)), list(flat(outs_p))
         err = 0.0
         for a, b in zip(outs_k, outs_p):
             if not torch.equal(a.cpu(), b.cpu()):
                 raise AssertionError(f"{name}: kernel differs from its "
                                      f"plain version")
-            err = max(err, float((a.double() - b.double()).abs().max()))
+            # equal entries (+inf ones included) differ by 0
+            diff = torch.where(a == b, 0.0, (a.double() - b.double()).abs())
+            err = max(err, float(diff.max()))
         t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
         t_ops = ops / rate * 1e3
         rows_out.append(dict(
             name=name, route="cuda", source=sources_of[name],
             replaces=REPLACES[name], launches=launches[name],
             max_abs_err=err, ms=cuda_ms(torch, kern, reps),
-            plain_ms=cuda_ms(torch, plain, 1),
+            plain_ms=cuda_ms(torch, plain, 1, warm=plain_warm),
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=lib, match=True,
@@ -579,6 +742,102 @@ def main() -> int:
     record("fused_counting_multisweep", k6, k6_plain, k6(), k6_plain(),
            s * n_pad * 18 + b6, o6, WORD_OPS_PER_S, 2, None,
            library_note=MULTI_SWEEP_NOTE)
+    # -- K7 / K8 / K9 on a mid-run tropical state, full width ----------------
+    # free the boolean and counting operands before the 17.2 GB f32 one
+    del adj, at, pg, lib_f, fs, cf, cd, csg, cst, f, d, fp, st
+    torch.cuda.empty_cache()
+    pw = repro_torch.prepare(graphs["rmat16"],
+                             weights=lanes_of["rmat16"]).prepared_weighted()
+    wd, lw = pw.wdense, pw.w_edges
+    g = pw.graph
+    wsrc = torch.from_numpy(srcs["rmat16"][:128].astype(np.int64)).cuda()
+    f = torch.zeros((s, n_pad), dtype=torch.int8, device="cuda")
+    f[torch.arange(s, device="cuda"), wsrc] = 1
+    d = torch.where(f != 0, 0.0, float("inf")).to(torch.float32)
+    indptr = common.lane_offsets(g.src, n_pad)
+    for _ in range(mid_step):
+        f, d = tropical.sparse_relax_sweep(f, d, g.src, g.dst, lw,
+                                           indptr=indptr)
+    inf = torch.tensor(float("inf"), device="cuda")
+    fd = torch.where(f != 0, d, inf)
+    w_min = lw.min()
+    torch.cuda.synchronize()
+
+    # per operand row: its 32 B sectors holding a finite weight, its lanes
+    spr = n_pad // 8
+    lane_k = g.src[: g.n_edges].long()
+    sec_key = torch.unique(lane_k * spr + g.dst[: g.n_edges].long() // 8)
+    sectors_k = torch.bincount(sec_key // spr, minlength=n_pad).double()
+    deg_k = pw.deg.double()
+
+    def minplus_need(f_, d_):
+        """Operand bytes and operations one min-plus sweep needs on this
+        state.  Bytes: for every k where some row's frontier holds a
+        finite distance, the 32 B sectors of operand row k that hold a
+        finite weight.  Operations: one add and one min per (row s, edge
+        k -> j) with k in s's frontier at a finite distance.  Also the
+        lanes the sparse relax must read: 8 B (dst, weight) per out-lane
+        and 8 B of offsets per such k."""
+        act = (f_ != 0) & torch.isfinite(d_)
+        act_k = act.any(dim=0).double()
+        ops = 2.0 * float(act.double().sum(dim=0) @ deg_k)
+        lane_bytes = 8.0 * float(act_k @ deg_k) + 8.0 * float(act_k.sum())
+        return 32.0 * float(act_k @ sectors_k), ops, lane_bytes
+
+    b7, o7, l9 = minplus_need(f, d)
+
+    def k7():
+        return tropical.fused_minplus_sweep(fd, wd, d, w_min, bs=128,
+                                            bn=128, bk=128)
+
+    def k7_plain():
+        return TR.minplus_sweep_ref(fd, wd, d)
+
+    out7 = k7_plain()
+    record("fused_minplus_sweep", k7, k7_plain, k7(), out7,
+           s * n_pad * 13 + b7, o7, WORD_OPS_PER_S, 3, None,
+           plain_warm=False,
+           library_note="no single PyTorch call computes a (min,+) product")
+
+    def k8():
+        return tropical.fused_minplus_multisweep(f, wd, d, mid_step, n_run,
+                                                 bs=128, max_sweeps=n_run)
+
+    def k8_plain():
+        return TR.fused_minplus_multisweep_ref(f, wd, d, n_run)
+
+    # the sweeps the block needs on this state
+    f_t, d_t, b8, o8 = f, d, 0.0, 0.0
+    for t in range(n_run):
+        nb, no, _ = minplus_need(f_t, d_t)
+        b8, o8 = b8 + nb, o8 + no
+        f_t, d_t = tropical.sparse_relax_sweep(f_t, d_t, g.src, g.dst, lw,
+                                               indptr=indptr)
+        if not bool(f_t.any()):
+            break
+    record("fused_minplus_multisweep", k8, k8_plain, k8(), k8_plain(),
+           s * n_pad * 10 + b8, o8, WORD_OPS_PER_S, 1, None,
+           plain_warm=False, library_note=MULTI_SWEEP_NOTE)
+
+    def k9():
+        return tropical.sparse_relax_sweep(f, d, g.src, g.dst, lw,
+                                           indptr=indptr)
+
+    def k9_plain():
+        return TR.sparse_relax_ref(f, d, g.src, g.dst, lw)
+
+    # yardstick: the scatter-min alone, on precomputed lane candidates
+    src_l, dst_l = g.src.long(), g.dst.long()
+    lcand = torch.where(f.t()[src_l] != 0, d.t()[src_l] + lw[:, None], inf)
+    lacc = d.t().contiguous()
+    lib9 = cuda_ms(torch, lambda: lacc.index_reduce_(0, dst_l, lcand,
+                                                     "amin"), 5)
+    del lcand, lacc
+    record("sparse_relax_sweep", k9, k9_plain, k9(), k9_plain(),
+           s * n_pad * 10 + l9, o7, WORD_OPS_PER_S, 5, lib9,
+           library_note="index_reduce_ amin on precomputed candidates: "
+                        "scatter only")
+
     # launches of the comparisons above do not count: report the main path's
     for row in rows_out:
         row["launches"] = launches[row["name"]]

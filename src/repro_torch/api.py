@@ -5,13 +5,14 @@
     h = dawn.prepare(graph)                 # operands on the card
     d = h.sssp(0)                           # one dist row
     res = h.apsp(sources)                   # batched engine result
+    h = dawn.prepare(graph, weights=w)      # lane weights: tropical
+    res = h.apsp(sources, semiring="tropical")
 
 ``prepare`` puts the graph's operands on ``device`` (``None``: the card;
 pass ``device="cpu"`` for the CPU) and raises when CUDA is missing and
-the CPU was not asked for.  The boolean and counting semirings and
-centrality are ported; the tropical semiring and the other routes of
-``repro.api`` raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+the CPU was not asked for.  The boolean, counting and tropical semirings
+and centrality are ported; the other routes of ``repro.api`` raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -25,13 +26,12 @@ from .core.centrality import counting_apsp as _counting_apsp
 from .core.engine import EngineConfig, PreparedGraph, prepare_graph
 from .core.engine import apsp_engine as _apsp_engine
 from .core.options import SweepOptions
+from .core.weighted import (PreparedWeightedGraph, WeightedConfig,
+                            prepare_weighted)
+from .core.weighted import weighted_apsp as _weighted_apsp
 from .graph.csr import CSRGraph, resolve_device
 
 SEMIRING_NAMES = ("boolean", "tropical", "counting")
-
-_NOT_PORTED = {
-    "tropical": "the tropical engine (ROADMAP Queue 1 item 7)",
-}
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -42,12 +42,14 @@ class DawnGraph:
     """Prepared-graph handle returned by :func:`prepare`.  The operands
     are built once, lazily, on the handle's device."""
 
-    def __init__(self, graph: CSRGraph, *,
+    def __init__(self, graph: CSRGraph, *, weights=None,
                  options: Optional[SweepOptions] = None, device=None):
         self.device = resolve_device(device)
         self.graph = graph
         self.options = options or SweepOptions()
+        self._weights = weights
         self._pg: Optional[PreparedGraph] = None
+        self._pw: Optional[PreparedWeightedGraph] = None
 
     def prepared(self) -> PreparedGraph:
         """The :class:`PreparedGraph` (boolean and counting operands) on
@@ -56,19 +58,29 @@ class DawnGraph:
             self._pg = prepare_graph(self.graph, device=self.device)
         return self._pg
 
+    def prepared_weighted(self) -> PreparedWeightedGraph:
+        """The :class:`PreparedWeightedGraph` (tropical operands) on the
+        device; needs the ``weights=`` given to :func:`prepare`."""
+        if self._weights is None:
+            raise ValueError("tropical semiring needs weights: "
+                             "prepare(graph, weights=...)")
+        if self._pw is None:
+            self._pw = prepare_weighted(self.graph, self._weights,
+                                        device=self.device)
+        return self._pw
+
     def _check_semiring(self, semiring: str) -> None:
         if semiring not in SEMIRING_NAMES:
             raise ValueError(
                 f"unknown semiring {semiring!r}; one of {SEMIRING_NAMES}")
-        if semiring in _NOT_PORTED:
-            raise _not_ported(f"semiring={semiring!r} needs "
-                              f"{_NOT_PORTED[semiring]}, which")
 
     def apsp(self, sources: Optional[Sequence[int]] = None, *,
              semiring: str = "boolean", mesh=None,
              checkpoint_dir: Optional[str] = None, on_chunk=None):
         """Batched multi-source shortest paths (default: all sources) ->
-        :class:`repro_torch.core.engine.ApspResult` (boolean) or
+        :class:`repro_torch.core.engine.ApspResult` (boolean),
+        :class:`repro_torch.core.weighted.WeightedApspResult` (tropical:
+        f32 distances, +inf unreachable) or
         :class:`repro_torch.core.centrality.CountingResult` (counting:
         levels plus exact shortest-path counts)."""
         self._check_semiring(semiring)
@@ -78,6 +90,10 @@ class DawnGraph:
         if checkpoint_dir is not None or on_chunk is not None:
             raise _not_ported("checkpoint_dir= / on_chunk= (resumable "
                               "jobs, ROADMAP Queue 1 item 10)")
+        if semiring == "tropical":
+            return _weighted_apsp(self.prepared_weighted(), sources=sources,
+                                  config=self.options.to(WeightedConfig,
+                                                         lenient=True))
         if semiring == "counting":
             return _counting_apsp(self.prepared(), sources,
                                   config=self.options.to(CentralityConfig,
@@ -88,7 +104,8 @@ class DawnGraph:
 
     def sssp(self, source: int, *, semiring: str = "boolean",
              mesh=None) -> torch.Tensor:
-        """One distance row from ``source``: int32 hops, -1 unreachable."""
+        """One distance row from ``source``: int32 hops with -1 for
+        unreachable (boolean, counting), float32 with +inf (tropical)."""
         return self.apsp([int(source)], semiring=semiring, mesh=mesh).dist[0]
 
     def centrality(self, sources: Optional[Sequence[int]] = None, *,
@@ -118,16 +135,15 @@ def prepare(graph: CSRGraph, *, weights=None,
 
     ``options=`` takes a ready :class:`SweepOptions`; any extra keywords
     construct one (``prepare(g, source_batch=64, use_kernel=False)``).
+    ``weights=`` attaches (m_pad,) lane weights (at least ``n_edges``
+    non-negative values in lane order) for the tropical semiring.
     ``device=None`` means the card.
     """
-    if weights is not None:
-        raise _not_ported("weights= (the tropical engine, ROADMAP Queue 1 "
-                          "item 7)")
     if not isinstance(graph, CSRGraph):
         raise _not_ported(f"{type(graph).__name__} (only a static CSRGraph "
                           f"is ported; DynamicCSRGraph is ROADMAP Queue 1 "
                           f"item 8)")
     if options is not None and opts:
         raise ValueError("pass options= or plain keywords, not both")
-    return DawnGraph(graph, options=options or SweepOptions(**opts),
-                     device=device)
+    return DawnGraph(graph, weights=weights,
+                     options=options or SweepOptions(**opts), device=device)

@@ -34,3 +34,19 @@ def csr_from_arrays(arrays: Mapping[str, np.ndarray], *, n_nodes: int,
             np.array(a, dtype=np.int32, copy=True)).to(dev)
     return CSRGraph(**tensors, n_nodes=int(n_nodes), n_edges=int(n_edges),
                     m_pad=int(m_pad))
+
+
+def lane_weights_from_array(lanes: np.ndarray, *, n_edges: int, m_pad: int,
+                            device=None) -> torch.Tensor:
+    """The port's (m_pad,) float32 lane weights from the JAX side's
+    (``CSRGraph.from_weighted_edges`` or ``PreparedWeightedGraph.w_edges``),
+    given as a numpy array, on ``device`` (``None``: the card).  The
+    padded lanes ``[n_edges:]`` must hold +inf."""
+    dev = resolve_device(device)
+    a = np.asarray(lanes)
+    if a.shape != (m_pad,):
+        raise ValueError(f"lanes: shape {a.shape}, expected ({m_pad},)")
+    a = np.array(a, dtype=np.float32, copy=True)
+    if not np.all(np.isposinf(a[n_edges:])):
+        raise ValueError("lanes: the padded lanes must hold +inf")
+    return torch.from_numpy(a).to(dev)

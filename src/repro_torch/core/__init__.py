@@ -1,6 +1,6 @@
 """The port's engine core: frontier packing, options, the sweep layer,
-the batched boolean APSP engine, the single-source drivers and the
-counting engine with centrality."""
+the batched boolean APSP engine, the single-source drivers, the counting
+engine with centrality and the tropical (weighted) engine."""
 from .bovm import DawnState, bovm_msbfs, bovm_sssp, bovm_sweep
 from .centrality import (MEASURES, CentralityConfig, CentralityResult,
                          CountingResult, betweenness, brandes_dependencies,
@@ -19,6 +19,12 @@ from .sovm import (SovmState, reconstruct_path, sovm_msbfs, sovm_sssp,
                    sovm_sweep)
 from .sssp import SsspResult, apsp, apsp_dense, multi_source, sssp
 from .sweep import (BOOLEAN, COUNTING, DIRECTION_NAMES, PULL, PUSH, SPARSE,
-                    Semiring, SweepState, boolean_forms, counting_forms,
-                    derive_parents, fused_form, make_state,
-                    resolve_fused_steps, sweep_loop, time_sweep_forms)
+                    TROPICAL, Semiring, SweepState, boolean_forms,
+                    counting_forms, derive_parents, fused_form, make_state,
+                    minplus_candidates, resolve_fused_steps, sweep_loop,
+                    time_sweep_forms, tropical_forms)
+from .weighted import (WEIGHTED_FORM_NAMES, PreparedWeightedGraph,
+                       WeightedApspResult, WeightedConfig, WeightedResult,
+                       bucketed_sssp, dijkstra_oracle,
+                       expand_integer_weights, measure_weighted_costs,
+                       minplus_sssp, prepare_weighted, weighted_apsp)

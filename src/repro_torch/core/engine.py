@@ -124,17 +124,22 @@ def prepare_graph(g: CSRGraph, *, align: int = 128,
 # --------------------------------------------------------------------------
 
 def frontier_stats(frontier: torch.Tensor, dist: torch.Tensor, *, bs: int,
-                   bn: int, bk: int) -> SweepStats:
+                   bn: int, bk: int,
+                   unreached: Optional[torch.Tensor] = None) -> SweepStats:
     """Tile-occupancy fractions — the same tables the push kernel builds.
 
     live(i, j, k) = f_occ[i, k] & o_occ[i, j]; its mean factorizes as
     E_i[ mean_k f_occ[i, :] * mean_j o_occ[i, :] ], taken in float32 in
     the JAX package's order.
+
+    ``unreached`` is the semiring's not-yet-settled mask; the default is
+    the boolean semiring's ``dist < 0`` (tropical passes ``isinf(dist)``).
     """
     s, n = frontier.shape
     gi, gj, gk = s // bs, n // bn, n // bk
+    unr = (dist < 0) if unreached is None else unreached
     f_occ = (frontier.reshape(gi, bs, gk, bk) != 0).any(dim=3).any(dim=1)
-    o_occ = (dist < 0).reshape(gi, bs, gj, bn).any(dim=3).any(dim=1)
+    o_occ = unr.reshape(gi, bs, gj, bn).any(dim=3).any(dim=1)
     f_row = f_occ.to(torch.float32).mean(dim=1)           # (gi,)
     o_row = o_occ.to(torch.float32).mean(dim=1)           # (gi,)
     return SweepStats(live_tile_frac=(f_row * o_row).mean(),

@@ -1,16 +1,18 @@
 """The semiring sweep-operator layer — one loop under the engines.
 
-The port of the boolean and counting halves of ``repro/core/sweep.py``.
-A *sweep* extends all known shortest paths by one relaxation, skips
-settled targets (Thm 3.2) and the loop stops at the first sweep that
-settles nothing (Fact 1).  This module owns:
+The port of the boolean, counting and tropical parts of
+``repro/core/sweep.py``.  A *sweep* extends all known shortest paths by
+one relaxation, skips settled targets (Thm 3.2) and the loop stops at the
+first sweep that settles nothing (Fact 1).  This module owns:
 
-  * :class:`Semiring`    — the algebra spec (boolean, counting);
+  * :class:`Semiring`    — the algebra spec (boolean, counting, tropical);
   * the three boolean sweep *forms* over identical padded state — dense
     push, bit-packed pull, edge-parallel sparse scatter
     (:func:`boolean_forms`);
   * the two counting forms — f32 push product and sparse scatter-add
     over the (dist, sigma) pair (:func:`counting_forms`);
+  * the two tropical (min,+) forms — dense min-plus product and sparse
+    scatter-min relax over f32 distances (:func:`tropical_forms`);
   * :class:`SweepState`  — the loop state (``frontier``, ``dist``,
     ``parent``, ``step``, ``sweeps``, ``edges_touched``, ``dir_counts``);
   * :func:`sweep_loop`   — the ONE loop driver of ``repro_torch/core``;
@@ -66,6 +68,11 @@ BOOLEAN = Semiring("boolean", torch.int32, UNREACHED, 0,
 # every partial is summed exactly once before the gate.
 COUNTING = Semiring("counting", torch.int32, UNREACHED, 0,
                     unit="f32 MAC / CSR add lane")
+# Weighted shortest paths: (min, +) over f32 distances, +inf unreached.
+TROPICAL = Semiring("tropical", torch.float32, float("inf"), 0.0,
+                    unit="f32 add+min lane / CSR relax lane")
+
+_INF = float("inf")
 
 
 # --------------------------------------------------------------------------
@@ -403,18 +410,118 @@ def counting_forms(adj, src_idx, dst_idx, *, n_pad: int = 0, s: int = 0,
 
 
 # --------------------------------------------------------------------------
+# tropical semiring forms (weighted shortest paths)
+# --------------------------------------------------------------------------
+
+def tropical_forms(wdense, src_idx, dst_idx, w_edges, *, n_pad: int = 0,
+                   chunk: int = 128, use_frontier: bool = True,
+                   use_kernel: bool = False, bn: int = 128, bk: int = 128,
+                   eb: int = 128) -> Tuple[Optional[SweepForm], SweepForm]:
+    """(dense, sparse) (min,+) sweep forms.
+
+    dense  — the f32 min-plus analogue of the boolean push:
+             ``cand[s, j] = min_k (dist[s, k] + W[k, j])`` over frontier
+             rows.  ``wdense`` is (n_pad, n_pad) f32 with +inf non-edges
+             (``None`` when only the sparse form runs; the dense form is
+             then ``None``).  Reference path: :func:`minplus_candidates`,
+             ``chunk`` destination columns at a time.  Kernel path: the
+             dense min-plus kernel (K7) with settled-bound tile skipping,
+             looked up in :mod:`repro_torch.kernels.registry`.
+    sparse — edge-parallel relaxation: ``cand = dist[src] + w``
+             scattered with min into ``dst`` — Bellman-Ford restricted to
+             the improved frontier (sound for non-negative weights).
+             ``use_frontier=False`` relaxes every edge every sweep
+             (reference path only).  Kernel path (batched 2-D state on
+             the card): the sparse relax kernel (K9) over the lanes of
+             the frontier, given the lane offsets of ``src_idx``, which
+             must be in CSR order.  Unlike the JAX package, whose compiled
+             path takes the XLA scatter here, the port dispatches the
+             kernel: min is order-free, so the bits are the same.
+
+    Fact 1 generalizes: the new frontier is the improved set, and a
+    sweep that improves nothing terminates.
+    """
+    src_l, dst_l = src_idx.long(), dst_idx.long()
+
+    def sparse_ref(f, d, p, step):
+        # one 1-D scatter-min along the node axis of the (n, S') state
+        shape = d.shape
+        d_t = d.reshape(-1, shape[-1]).t()
+        cand = d_t[src_l] + w_edges[:, None]               # (m_pad, S')
+        if use_frontier:
+            f_t = f.reshape(-1, shape[-1]).t()
+            cand = torch.where(f_t[src_l] != 0, cand,
+                               torch.full((), _INF, device=d.device))
+        nd = d_t.clone(memory_format=torch.contiguous_format)
+        nd.index_reduce_(0, dst_l, cand, "amin")
+        nd = nd.t().contiguous().reshape(shape)
+        new = nd < d
+        return new.to(torch.int8), nd, p
+
+    def masked(f, d):
+        return torch.where(f != 0, d, torch.full((), _INF, device=d.device))
+
+    if use_kernel:
+        if not use_frontier:
+            raise ValueError("the kernel path is frontier-gated by "
+                             "construction")
+        K = kernel_registry.get(TROPICAL).forms
+        # min edge weight — drives the K7 settled-skip table (padded
+        # lanes are +inf and fall out of the min)
+        w_min = torch.min(w_edges)
+
+        dense = None
+        if wdense is not None:
+            def dense(f, d, p, step):
+                new, nd = K["dense"](masked(f, d), wdense, d, w_min,
+                                     bs=min(f.shape[0], 128), bn=bn, bk=bk)
+                return new, nd, p
+
+        indptr = kernel_common.lane_offsets(src_idx, n_pad)
+
+        def sparse(f, d, p, step):
+            new, nd = K["sparse"](f, d, src_idx, dst_idx, w_edges, eb=eb,
+                                  indptr=indptr)
+            return new, nd, p
+
+        return dense, sparse
+
+    dense = None
+    if wdense is not None:
+        def dense(f, d, p, step):
+            cand = minplus_candidates(masked(f, d), wdense, chunk=chunk)
+            nd = torch.minimum(d, cand)
+            new = nd < d
+            return new.to(torch.int8), nd, p
+
+    return dense, sparse_ref
+
+
+def minplus_candidates(fd: torch.Tensor, wdense: torch.Tensor, *,
+                       chunk: int = 128) -> torch.Tensor:
+    """The (min,+) matrix product ``cand[s, j] = min_k fd[s, k] + W[k, j]``
+    behind the dense tropical form, on a (K, N) operand.  ``chunk``
+    destination columns at a time bound the (S, chunk, K) broadcast."""
+    kdim, ndim = wdense.shape
+    c = _pull_chunk_size(ndim, chunk)
+    return torch.cat(
+        [(fd[..., None, :] + wdense[:, j0: j0 + c].t()).amin(dim=-1)
+         for j0 in range(0, ndim, c)], dim=-1)
+
+
+# --------------------------------------------------------------------------
 # shortest-path tree post-pass
 # --------------------------------------------------------------------------
 
 def derive_parents(g, dist: torch.Tensor, *, weights=None) -> torch.Tensor:
     """Parent of v = any in-neighbour u on a shortest path (max u id wins
-    — the same deterministic tie-break as the in-loop sparse tracking):
-    ``dist[u] + 1 == dist[v]``.  dist is (..., n) over real nodes; one
-    sparse pass over the padded CSR lanes, with a dead sentinel column."""
-    if weights is not None:
-        raise NotImplementedError(
-            "weighted parents need the tropical slice (ROADMAP Queue 1 "
-            "item 7)")
+    — the same deterministic tie-break as the in-loop sparse tracking).
+
+    Unweighted: ``dist[u] + 1 == dist[v]``.  Weighted (pass the (m_pad,)
+    lane ``weights``): ``dist[u] + w(u, v) == dist[v]`` — exact because
+    the sweeps computed dist[v] as that very f32 sum for at least one
+    in-neighbour.  dist is (..., n) over real nodes; one sparse pass over
+    the padded CSR lanes, with a dead sentinel column."""
     n = g.n_nodes
     shape = dist.shape
     d = torch.cat([dist.reshape(-1, n),
@@ -423,7 +530,14 @@ def derive_parents(g, dist: torch.Tensor, *, weights=None) -> torch.Tensor:
                   dim=1).t()                             # (n + 1, S')
     src, dst = g.src.long(), g.dst.long()
     du, dv = d[src], d[dst]                              # (m_pad, S')
-    ok = (du != UNREACHED) & (dv == du + 1)
+    if weights is None:
+        ok = (du != UNREACHED) & (dv == du + 1)
+    else:
+        w = torch.as_tensor(weights, dtype=torch.float32,
+                            device=dist.device)
+        w = torch.where(g.src < n, w, torch.full((), _INF,
+                                                 device=dist.device))
+        ok = torch.isfinite(du) & (dv == du + w[:, None])
     cand = torch.where(ok, g.src[:, None], torch.tensor(
         -1, dtype=torch.int32, device=dist.device))
     par = torch.full(d.shape, -1, dtype=torch.int32, device=dist.device)

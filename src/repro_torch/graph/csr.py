@@ -127,6 +127,47 @@ class CSRGraph:
             n_nodes=int(n_nodes), n_edges=int(m), m_pad=int(m_pad))
 
     @staticmethod
+    def from_weighted_edges(src: np.ndarray, dst: np.ndarray,
+                            weights: np.ndarray, n_nodes: int,
+                            *, remove_self_loops: bool = True,
+                            pad_to: Optional[int] = None, device=None
+                            ) -> Tuple["CSRGraph", torch.Tensor]:
+        """Build from weighted COO edges -> (graph, lane_weights).
+
+        ``lane_weights`` is an (m_pad,) float32 tensor on ``device``,
+        aligned with the graph's padded CSR lanes (+inf on padded slots),
+        the layout ``prepare_weighted`` consumes.  Duplicate edges reduce
+        to their MIN weight (in float64, then rounded once), matching how
+        the dense tropical operand resolves parallel edges.
+        """
+        src = np.asarray(src, dtype=np.int64)
+        dst = np.asarray(dst, dtype=np.int64)
+        w = np.asarray(weights, dtype=np.float64)
+        if not w.shape == src.shape == dst.shape:
+            raise ValueError(f"shapes differ: src {src.shape}, dst "
+                             f"{dst.shape}, weights {w.shape}")
+        if remove_self_loops:
+            keep = src != dst
+            src, dst, w = src[keep], dst[keep], w[keep]
+        # stable sort by (src, dst), the order from_edges' lexsort gives,
+        # so the surviving lanes line up with the graph's lanes exactly
+        key = src * n_nodes + dst
+        order = np.argsort(key, kind="stable")
+        src, dst, w, key = src[order], dst[order], w[order], key[order]
+        first = np.ones(len(key), bool)
+        first[1:] = key[1:] != key[:-1]
+        grp = np.cumsum(first) - 1
+        w_min = np.full(int(first.sum()), np.inf)
+        np.minimum.at(w_min, grp, w)
+        src, dst = src[first], dst[first]
+        g = CSRGraph.from_edges(src, dst, n_nodes, dedup=False,
+                                remove_self_loops=False, pad_to=pad_to,
+                                device=device)
+        lanes = np.full(g.m_pad, np.inf, np.float32)
+        lanes[: g.n_edges] = w_min
+        return g, torch.from_numpy(lanes).to(g.device)
+
+    @staticmethod
     def from_scipy(mat, **kw) -> "CSRGraph":
         coo = mat.tocoo()
         return CSRGraph.from_edges(coo.row, coo.col, mat.shape[0], **kw)

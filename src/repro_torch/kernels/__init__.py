@@ -7,3 +7,4 @@ first launch on the card.
 from . import common, registry
 from . import bovm  # noqa: F401  (registers the boolean kernel set)
 from . import counting  # noqa: F401  (registers the counting kernel set)
+from . import tropical  # noqa: F401  (registers the tropical kernel set)

@@ -56,6 +56,15 @@ def expand_table(table: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
                 .repeat_interleave(cols // gj, 1)
 
 
+def lane_offsets(src_idx: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """(n_pad + 1,) int32 offsets of each node's lanes in ``src_idx``,
+    which must be sorted (CSR order: the padded lanes carry the largest
+    id, the sentinel)."""
+    nodes = torch.arange(n_pad + 1, dtype=src_idx.dtype,
+                         device=src_idx.device)
+    return torch.searchsorted(src_idx, nodes, out_int32=True)
+
+
 def check_push_tiles(s: int, n: int, bs: int, bn: int, bk: int,
                      k: Optional[int] = None) -> None:
     """Tile divisibility contract shared by the push-style kernels.

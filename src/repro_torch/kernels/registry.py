@@ -1,8 +1,9 @@
 """Kernel registry: one tiling substrate, N semirings.
 
-Each kernel package (``kernels/bovm`` in this slice) registers a
-:class:`KernelSet` — its sweep entry points plus an on-chip budget
-estimator — keyed by the semiring name used by
+Each kernel package (``kernels/bovm``, ``kernels/counting``,
+``kernels/tropical``) registers a :class:`KernelSet` — its sweep entry
+points plus an on-chip budget estimator — keyed by the semiring name used
+by
 ``repro_torch.core.sweep.Semiring``.  The core sweep layer looks its
 kernels up here instead of importing a kernel module directly.
 Registration happens on import of ``repro_torch.kernels``.

@@ -1,0 +1,38 @@
+from .kernel import (fused_minplus_multisweep, fused_minplus_sweep,
+                     fused_smem_bytes, reset_launches,
+                     sparse_relax_sweep)
+from .ref import (fused_minplus_multisweep_ref, minplus_sweep_ref,
+                  sparse_relax_ref)
+
+from .. import registry
+
+
+def smem_bytes(*, form: str = "fused", n: int = 1152, **_) -> int:
+    """Shared memory one block of the form's kernel holds (the
+    counterpart of the JAX package's ``vmem_bytes``).
+
+    Only ``form="fused"`` is priced: one K8 block holds its active-k
+    list on chip (the operand is streamed and the dist state stays in
+    global memory) — the size ``resolve_fused_steps`` gates on.  The
+    per-sweep kernel K7 sizes its few-KB distance stage at launch; K9
+    holds nothing in shared memory."""
+    if form != "fused":
+        raise ValueError(f"only the fused form is priced, not {form!r}")
+    return fused_smem_bytes(n)
+
+
+registry.register(registry.KernelSet(
+    semiring="tropical",
+    forms={"dense": fused_minplus_sweep, "sparse": sparse_relax_sweep},
+    smem_bytes=smem_bytes,
+    notes="dense min-plus push on the CUDA cores (settled-bound tile "
+          "skip, all-+inf operand words cost no arithmetic) + the "
+          "edge-parallel sparse relax over the frontier's CSR lanes "
+          "(atomicMin on the float bits) + the fused multi-sweep kernel, "
+          "which keeps the dist state in global memory and reads only the "
+          "operand words holding a finite weight",
+    # unlike the JAX package, the sparse relax is dispatched on the card:
+    # min is order-free, so the atomic scatter gives the same bits
+    interpret_only=frozenset(),
+    fused_forms={"dense": fused_minplus_multisweep},
+))

@@ -1,0 +1,240 @@
+"""Wrappers of the tropical (min,+) sweep kernels (``csrc/tropical.cu``).
+
+The port's counterpart of ``repro/kernels/tropical/kernel.py``: the same
+three entry points with the JAX signatures, tile keywords and
+divisibility checks.
+
+  fused_minplus_sweep       K7 — dense min-plus push, gated by f_occ and
+                            the settled-bound o_occ -> (new, dist)
+  fused_minplus_multisweep  K8 — up to ``n_run`` min-plus sweeps per
+                            launch -> (new, dist, prod, stopped)
+  sparse_relax_sweep        K9 — edge-parallel relax over the CSR lanes
+                            of the frontier -> (new, dist)
+
+For tensors on the CPU each wrapper computes its plain version
+(``ref.py``).  For tensors on the card it checks dtype, shape, contiguity
+and alignment, allocates the outputs and scratch, launches its kernel on
+the current stream and raises on a non-zero launch status; it never falls
+back.  The library is built from source on first launch
+(``kernels/_build.py``).
+
+Each wrapper counts its launches in its ``launches`` attribute (one per
+wrapper call on the card, nothing on the CPU path); :func:`reset_launches`
+zeroes them.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from .. import _build, common
+from . import ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "tropical.cu"
+
+FUSED_ROWS = 1          # source rows per K8 block (<= 8), passed to the kernel
+LIST_CAP = 4096         # K8: active-k list entries (static shared memory)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "dawn_minplus_sweep": [_P] * 7 + [_I] * 7 + [_P],
+    "dawn_fused_minplus_multisweep": [_P] * 11 + [_I] * 4 + [_P],
+    "dawn_sparse_relax": [_P] * 8 + [_I] * 2 + [_P],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(SOURCE)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def reset_launches() -> None:
+    for fn in (fused_minplus_sweep, fused_minplus_multisweep,
+               sparse_relax_sweep):
+        fn.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K7: the dense min-plus push
+# --------------------------------------------------------------------------
+
+def fused_minplus_sweep(fdist: torch.Tensor, wdense: torch.Tensor,
+                        dist: torch.Tensor, w_min, *, bs: int = 128,
+                        bn: int = 128, bk: int = 128):
+    """One fused (min,+) sweep (K7).  fdist (S, k) f32 — the
+    frontier-masked distances (``where(frontier, dist, +inf)``), wdense
+    (k, n) f32 with +inf non-edges, dist (S, n) f32; ``w_min`` the
+    minimum edge weight (a 0-d tensor or a number, +inf for no edges).
+    S % bs == 0, n % bn == 0, k % bk == 0; on the card also
+    bn % 128 == 0 and bk % 8 == 0.  Returns (new int8, dist f32).
+
+    k-blocks with no finite fdist (f_occ) and output tiles whose every
+    distance already sits at or below ``min_k fdist[s, k] + w_min``
+    (o_occ, the settled bound) are skipped; f32 rounding is monotone, so
+    no candidate could improve such a tile and both skips are inert."""
+    s, k = fdist.shape
+    ka, n = wdense.shape
+    if ka != k or dist.shape != (s, n):
+        raise ValueError(f"shapes: {tuple(fdist.shape)}, "
+                         f"{tuple(wdense.shape)}, {tuple(dist.shape)}")
+    common.check_push_tiles(s, n, bs, bn, bk, k=k)
+    gi, gj, gk = s // bs, n // bn, k // bk
+    w_min = torch.as_tensor(w_min, dtype=torch.float32, device=fdist.device)
+    f_occ = common.block_any(torch.isfinite(fdist), gi, bs, gk, bk)
+    bound = fdist.amin(dim=1, keepdim=True) + w_min          # (S, 1) f32
+    o_occ = common.block_any(dist > bound, gi, bs, gj, bn)
+    if not dist.is_cuda:
+        return ref.minplus_sweep_ref(fdist, wdense, dist, f_occ=f_occ,
+                                     o_occ=o_occ)
+    common.check_cuda(fdist=(fdist, torch.float32),
+                      wdense=(wdense, torch.float32),
+                      dist=(dist, torch.float32))
+    if bn % 128 or bk % 8:
+        raise ValueError(f"the kernel needs bn % 128 == 0 and bk % 8 == 0, "
+                         f"got bn={bn}, bk={bk}")
+    tm = common.tile_rows(bs, 16)
+    new = torch.empty((s, n), dtype=torch.int8, device=dist.device)
+    dist_out = torch.empty_like(dist)
+    common.launch(_lib(), "dawn_minplus_sweep", dist.device,
+                  fdist.data_ptr(), wdense.data_ptr(), dist.data_ptr(),
+                  new.data_ptr(), dist_out.data_ptr(),
+                  f_occ.contiguous().data_ptr(),
+                  o_occ.contiguous().data_ptr(), s, n, k, tm, bs, bn, bk)
+    fused_minplus_sweep.launches += 1
+    return new, dist_out
+
+
+# --------------------------------------------------------------------------
+# K8: fused multi-sweep
+# --------------------------------------------------------------------------
+
+def fused_smem_bytes(n: int) -> int:
+    """Shared memory of one K8 block: the active-k list and its counter
+    (static).  The rows' state stays in global memory, so the size does
+    not grow with the padded node count ``n``; the kernel itself refuses
+    n >= 2^23 (the list packs k into 23 bits)."""
+    del n
+    return 4 * LIST_CAP + 4
+
+
+def fused_minplus_multisweep(frontier: torch.Tensor, wdense: torch.Tensor,
+                             dist: torch.Tensor, step, n_run, *,
+                             bs: int = 128, max_sweeps: int = 1):
+    """Run up to ``n_run`` (min,+) sweeps (``n_run <= max_sweeps``) in ONE
+    launch (K8).  frontier (S, n) int8 improved-mask, wdense (n, n) f32,
+    dist (S, n) f32; ``step`` is accepted for signature uniformity and
+    unused (tropical distances are the candidates themselves).
+
+    Returns (new int8, dist f32, prod int32 scalar, stopped bool scalar):
+    ``prod`` is the most productive sweeps of any row tile and ``stopped``
+    whether every tile converged, so the loop driver's accounting is
+    ``executed = stopped ? prod + 1 : n_run``.  The kernel runs FUSED_ROWS
+    source rows per block whatever ``bs`` is; rows evolve independently,
+    so no result depends on the tile.  On the card a first pass marks the
+    16-byte operand words that hold a finite weight, in an (n, n/128)
+    int32 scratch of n^2/32 bytes."""
+    del step
+    s, n = frontier.shape
+    if wdense.shape != (n, n) or dist.shape != (s, n):
+        raise ValueError(f"shapes: {tuple(frontier.shape)}, "
+                         f"{tuple(wdense.shape)}, {tuple(dist.shape)}")
+    if s % bs or n % 128:
+        raise ValueError(f"tiles do not divide the shapes: {(s, n)} vs "
+                         f"bs={bs}")
+    n_run = int(n_run)
+    if not 0 <= n_run <= max_sweeps:
+        raise ValueError(f"n_run={n_run} outside [0, {max_sweeps}]")
+    if not dist.is_cuda:
+        return ref.fused_minplus_multisweep_ref(frontier, wdense, dist,
+                                                n_run)
+    common.check_cuda(frontier=(frontier, torch.int8),
+                      wdense=(wdense, torch.float32),
+                      dist=(dist, torch.float32))
+    rows = common.tile_rows(s, FUSED_ROWS)
+    tiles = s // rows
+    dev = dist.device
+    new = torch.empty((s, n), dtype=torch.int8, device=dev)
+    dist_out = torch.empty_like(dist)
+    wbits = torch.empty((n, n // 128), dtype=torch.int32, device=dev)
+    fa = torch.empty((s, n), dtype=torch.int8, device=dev)
+    fb = torch.empty((s, n), dtype=torch.int8, device=dev)
+    cand = torch.full((s, n), float("inf"), dtype=torch.float32, device=dev)
+    prod = torch.empty(tiles, dtype=torch.int32, device=dev)
+    stop = torch.empty(tiles, dtype=torch.int32, device=dev)
+    common.launch(_lib(), "dawn_fused_minplus_multisweep", dev,
+                  frontier.data_ptr(), wdense.data_ptr(), wbits.data_ptr(),
+                  dist.data_ptr(), new.data_ptr(), dist_out.data_ptr(),
+                  fa.data_ptr(), fb.data_ptr(), cand.data_ptr(),
+                  prod.data_ptr(), stop.data_ptr(), s, n, rows, n_run)
+    fused_minplus_multisweep.launches += 1
+    return new, dist_out, prod.max(), stop.min() > 0
+
+
+# --------------------------------------------------------------------------
+# K9: the edge-parallel sparse relax
+# --------------------------------------------------------------------------
+
+def sparse_relax_sweep(frontier: torch.Tensor, dist: torch.Tensor,
+                       src_idx: torch.Tensor, dst_idx: torch.Tensor,
+                       w_edges: torch.Tensor, *, eb: int = 128,
+                       indptr: Optional[torch.Tensor] = None):
+    """One edge-parallel (min,+) relax sweep (K9).  frontier (S, n_pad)
+    int8, dist (S, n_pad) f32, src/dst (m_pad,) int32 lanes (sentinel-
+    padded, indices < n_pad), w_edges (m_pad,) f32 (+inf padded lanes,
+    weights >= 0).  m_pad % eb == 0 (``eb`` is kept for the JAX
+    signature; the kernel walks lanes per frontier node).  Returns
+    (new int8, dist f32).
+
+    ``indptr`` ((n_pad + 1,) int32, ``common.lane_offsets``) declares the
+    lanes sorted by ``src`` (CSR order) and gives each node's lane range;
+    without it the wrapper sorts the lanes itself (min is order-free, so
+    the result is the same).  The card's version skips every lane whose
+    source is outside the frontier."""
+    s, n_pad = frontier.shape
+    m_pad = src_idx.shape[0]
+    if dist.shape != (s, n_pad) or dst_idx.shape != (m_pad,) or \
+            w_edges.shape != (m_pad,):
+        raise ValueError(f"shapes: {tuple(frontier.shape)}, "
+                         f"{tuple(dist.shape)}, {tuple(src_idx.shape)}, "
+                         f"{tuple(dst_idx.shape)}, {tuple(w_edges.shape)}")
+    if m_pad % eb:
+        raise ValueError(f"m_pad={m_pad} is not a multiple of eb={eb}")
+    if not dist.is_cuda:
+        return ref.sparse_relax_ref(frontier, dist, src_idx, dst_idx,
+                                    w_edges)
+    if indptr is None:
+        order = torch.argsort(src_idx, stable=True)
+        src_idx, dst_idx, w_edges = (src_idx[order], dst_idx[order],
+                                     w_edges[order])
+        indptr = common.lane_offsets(src_idx, n_pad)
+    common.check_cuda(frontier=(frontier, torch.int8),
+                      dist=(dist, torch.float32),
+                      indptr=(indptr, torch.int32),
+                      dst_idx=(dst_idx, torch.int32),
+                      w_edges=(w_edges, torch.float32))
+    if indptr.shape != (n_pad + 1,):
+        raise ValueError(f"indptr: shape {tuple(indptr.shape)}, expected "
+                         f"({n_pad + 1},)")
+    dev = dist.device
+    acc = torch.full((s, n_pad), float("inf"), dtype=torch.float32,
+                     device=dev)
+    new = torch.empty((s, n_pad), dtype=torch.int8, device=dev)
+    dist_out = torch.empty_like(dist)
+    common.launch(_lib(), "dawn_sparse_relax", dev, frontier.data_ptr(),
+                  dist.data_ptr(), indptr.data_ptr(), dst_idx.data_ptr(),
+                  w_edges.data_ptr(), acc.data_ptr(), new.data_ptr(),
+                  dist_out.data_ptr(), s, n_pad)
+    sparse_relax_sweep.launches += 1
+    return new, dist_out
+
+
+reset_launches()

@@ -1,5 +1,6 @@
 """The port's facade against ``repro.prepare`` (boolean and counting
-semirings, centrality), the routes it does not port yet, the device
+semirings, centrality; the tropical facade is held in
+``test_torch_weighted.py``), the routes it does not port yet, the device
 rule, and the package boundaries: no JAX or ``repro`` import anywhere in
 the port, one loop driver, and the core reaching its kernels only
 through the registry."""
@@ -116,8 +117,6 @@ def test_facade_centrality_matches_repro(graphs, measures):
 def test_unported_routes_raise(graphs):
     _, tg = graphs
     h = repro_torch.prepare(tg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        h.apsp([0], semiring="tropical")
     with pytest.raises(ValueError, match="unknown semiring"):
         h.apsp([0], semiring="min_label")
     calls = {
@@ -132,8 +131,6 @@ def test_unported_routes_raise(graphs):
             call()
     with pytest.raises(NotImplementedError, match="item 11"):
         h.centrality([0], mesh=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        repro_torch.prepare(tg, weights=np.ones(tg.m_pad), device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
         repro_torch.prepare(tg, tuning=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
@@ -173,6 +170,8 @@ SLICE_MODULES = (
     "core/bovm.py", "core/sovm.py", "core/sssp.py", "core/centrality.py",
     "kernels/counting/__init__.py", "kernels/counting/kernel.py",
     "kernels/counting/ref.py",
+    "core/weighted.py", "kernels/tropical/__init__.py",
+    "kernels/tropical/kernel.py", "kernels/tropical/ref.py",
 )
 
 
@@ -185,7 +184,8 @@ def test_boundary_tests_scan_every_slice_module():
     for rel in SLICE_MODULES:
         assert PORT / rel in files, rel
     cores = {p.name for p in (PORT / "core").rglob("*.py")}
-    assert {"bovm.py", "sovm.py", "sssp.py", "centrality.py"} <= cores
+    assert {"bovm.py", "sovm.py", "sssp.py", "centrality.py",
+            "weighted.py"} <= cores
 
 
 def _imports(path: pathlib.Path):
@@ -232,7 +232,7 @@ def test_one_loop_driver_in_sweep():
 
 def test_core_reaches_kernels_through_the_registry():
     from repro_torch.kernels import registry
-    assert set(registry.available()) >= {"boolean", "counting"}
+    assert set(registry.available()) >= {"boolean", "counting", "tropical"}
     for path in sorted((PORT / "core").rglob("*.py")):
         for mod in _imports(path):
             if mod.startswith("repro_torch.kernels"):

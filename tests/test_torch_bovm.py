@@ -56,15 +56,15 @@ def _eq(jax_out, torch_out):
 
 def test_registry_boolean_set():
     ks = registry.get("boolean")
-    assert registry.available() == ("boolean", "counting")
+    assert registry.available() == ("boolean", "counting", "tropical")
     assert set(ks.forms) == {"push", "push_f32", "pull"}
     assert ks.forms["push"] is bovm.packed_push_sweep
     assert ks.forms["pull"] is bovm.packed_pull_sweep
     assert ks.forms["push_f32"] is bovm.fused_sweep
     assert ks.fused_forms == {"push": bovm.fused_boolean_multisweep}
     assert ks.dispatchable("push", interpret=False)
-    with pytest.raises(KeyError, match="tropical"):
-        registry.get("tropical")
+    with pytest.raises(KeyError, match="min_label"):
+        registry.get("min_label")
 
 
 def test_smem_budget_and_fused_gate():
@@ -93,7 +93,7 @@ def test_smem_budget_and_fused_gate():
                                n_pad=1152, max_steps=64, use_kernel=False,
                                bs=128) is None
     assert resolve_fused_steps("tropical", "dense", fused_steps=-1,
-                               n_pad=1152, **kw) is None
+                               n_pad=1152, **kw) == 64
 
 
 def test_block_any_matches_reshape_reduction():

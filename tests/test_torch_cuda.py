@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card against their plain versions, and
-the boolean and counting engines' kernel paths on the card against the
-CPU.  Needs an NVIDIA GPU and nvcc; without CUDA every test here skips.
+the boolean, counting and tropical engines' kernel paths on the card
+against the CPU.  Needs an NVIDIA GPU and nvcc; without CUDA every test here skips.
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -11,8 +11,10 @@ import torch
 from repro_torch.core import pack_bits
 from repro_torch.core.centrality import CentralityConfig, counting_apsp
 from repro_torch.core.engine import EngineConfig, apsp_engine, prepare_graph
+from repro_torch.core.weighted import (WeightedConfig, prepare_weighted,
+                                       weighted_apsp)
 from repro_torch.graph import generators as gen
-from repro_torch.kernels import bovm, counting
+from repro_torch.kernels import bovm, common, counting, tropical
 
 pytestmark = pytest.mark.cuda
 
@@ -164,3 +166,90 @@ def test_counting_engine_on_card_matches_cpu(cuda, opts):
     assert torch.equal(want.sigma, got.sigma.cpu())
     assert want.sweeps == got.sweeps
     assert torch.equal(want.direction_counts, got.direction_counts)
+
+
+# --------------------------------------------------------------------------
+# the tropical kernels (K7, K8, K9) and the tropical engine
+# --------------------------------------------------------------------------
+
+def _tropical_start(nodes, s, seed):
+    """A weighted graph, its dense operand and a start state after one
+    sweep, so both the frontier and the distances are non-trivial."""
+    g = gen.erdos_renyi(nodes, 5.0, seed=seed, directed=False, device="cpu")
+    rng = np.random.default_rng(seed)
+    w = (rng.integers(4, 33, g.m_pad) / 8).astype(np.float32)
+    pw = prepare_weighted(g, w, device="cpu")
+    n = pw.n_pad
+    src = torch.from_numpy(np.sort(rng.choice(nodes, s, replace=False)))
+    f = torch.zeros((s, n), dtype=torch.int8)
+    f[torch.arange(s), src] = 1
+    d = torch.where(f != 0, 0.0, float("inf")).to(torch.float32)
+    f, d = tropical.sparse_relax_sweep(f, d, g.src, g.dst, pw.w_edges)
+    return pw, f, d
+
+
+@pytest.mark.parametrize("s,nodes,bs", [(128, 500, 128), (16, 300, 16),
+                                        (40, 900, 8)])
+def test_tropical_kernels_match_plain(cuda, monkeypatch, s, nodes, bs):
+    """K7 and K9 sweep by sweep, then K8 from the mid-run state (n_run 0,
+    1, 3 and to the fixpoint, with 1 and 4 source rows per block):
+    bit-identical to the plain versions on the CPU."""
+    pw, f, d = _tropical_start(nodes, s, nodes)
+    g, w, wd = pw.graph, pw.w_edges, pw.wdense
+    indptr = common.lane_offsets(g.src, pw.n_pad)
+    inf = torch.tensor(float("inf"))
+    before = (tropical.fused_minplus_sweep.launches,
+              tropical.sparse_relax_sweep.launches)
+    for _ in range(2):
+        fd = torch.where(f != 0, d, inf)
+        want = tropical.fused_minplus_sweep(fd, wd, d, w.min(), bs=bs)
+        got = tropical.fused_minplus_sweep(fd.to(cuda), wd.to(cuda),
+                                           d.to(cuda), w.min().to(cuda),
+                                           bs=bs)
+        torch.cuda.synchronize()
+        _same(want, got)
+        got = tropical.sparse_relax_sweep(
+            f.to(cuda), d.to(cuda), g.src.to(cuda), g.dst.to(cuda),
+            w.to(cuda), indptr=indptr.to(cuda))
+        _same(want, got)
+        # without indptr the wrapper sorts the lanes itself
+        perm = torch.randperm(g.m_pad, generator=torch.Generator()
+                              .manual_seed(s))
+        got = tropical.sparse_relax_sweep(
+            f.to(cuda), d.to(cuda), g.src[perm].to(cuda),
+            g.dst[perm].to(cuda), w[perm].to(cuda))
+        _same(want, got)
+        f, d = want
+    assert tropical.fused_minplus_sweep.launches == before[0] + 2
+    assert tropical.sparse_relax_sweep.launches == before[1] + 4
+    for rows in (1, 4):
+        monkeypatch.setattr(tropical.kernel, "FUSED_ROWS", rows)
+        for n_run in (0, 1, 3, 60):
+            kw = dict(bs=bs, max_sweeps=max(n_run, 1))
+            want = tropical.fused_minplus_multisweep(f, wd, d, 0, n_run,
+                                                     **kw)
+            got = tropical.fused_minplus_multisweep(
+                f.to(cuda), wd.to(cuda), d.to(cuda), 0, n_run, **kw)
+            torch.cuda.synchronize()
+            _same(want[:2], got[:2])
+            assert int(want[2]) == int(got[2])
+            assert bool(want[3]) == bool(got[3])
+
+
+@pytest.mark.parametrize("opts", [dict(), dict(mode="dense"),
+                                  dict(mode="sparse"), dict(fused_steps=-1),
+                                  dict(fused_steps=2)])
+def test_weighted_engine_on_card_matches_cpu(cuda, opts):
+    g = gen.rmat(10, 8, directed=False, seed=2, device="cpu")
+    w = (np.random.default_rng(2).integers(4, 33, g.m_pad) / 8) \
+        .astype(np.float32)
+    sources = np.arange(0, 1024, 5)
+    cfg = WeightedConfig(use_kernel=True, **opts)
+    want = weighted_apsp(prepare_weighted(g, w, device="cpu"), sources=sources,
+                         config=cfg)
+    got = weighted_apsp(prepare_weighted(g, w, device=cuda), sources=sources,
+                        config=cfg)
+    assert torch.equal(want.dist, got.dist.cpu())
+    assert want.sweeps == got.sweeps
+    assert torch.equal(want.direction_counts, got.direction_counts)
+    assert float(want.edges_touched) == float(got.edges_touched)
