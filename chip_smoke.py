@@ -15,7 +15,11 @@ scipy's BFS, path counts against a float64 count on the host,
 betweenness against a float64 Brandes on the host, weighted distances
 against scipy's Dijkstra and a float32 Bellman-Ford replay on the host,
 and holds every kernel bit-identical to its plain PyTorch version at
-full width.  One JSON line per phase; the last line is
+full width: on rmat16 after 2 sweeps, and K1-K3 and K9 also on grid256's
+thin frontier after 200 sweeps, where most of their launches run.  Each
+kernel line carries its state and its main-path launches per graph
+(``tools/kernel_table.py`` ranks the kernels from them).  One JSON line
+per phase; the last line is
 ``{"ok": true, "device": {...}}``.
 Any failure raises and the script exits non-zero.  Without CUDA, or
 outside a checkout of the repository, it exits non-zero at once.
@@ -52,6 +56,8 @@ SRC = ROOT / "src"
 SEED = 1
 N_CHECK = 16                 # sources checked against scipy per graph
 N_CENTRALITY = 128           # sources of the centrality run
+GRID_STEPS = 200             # sweeps before grid256's thin kernel state
+GRID_RUN = 32                # sweeps per multi-sweep launch on that state
 EXACT_F32 = 2 ** 24          # float32 counts are exact integers below this
 # betweenness: float32 dependency sums (atomic scatter-adds in any order,
 # a few thousand terms per hub) against a float64 Brandes on the host
@@ -85,6 +91,16 @@ MULTI_SWEEP_NOTE = "no single PyTorch call computes a multi-sweep block"
 
 def emit(**fields):
     print(json.dumps(fields), flush=True)
+
+
+def tally(by_graph, graph, kernels, before):
+    """Add each kernel's launches since ``before`` to its count on
+    ``graph``; return them by name."""
+    got = {k.__name__: k.launches - b for k, b in zip(kernels, before)}
+    for name, c in got.items():
+        by_graph.setdefault(name, {}).setdefault(graph, 0)
+        by_graph[name][graph] += c
+    return got
 
 
 def nvidia_smi() -> str:
@@ -277,6 +293,7 @@ def main() -> int:
         "fused": dict(fused_steps=-1),
     }
     bovm.reset_launches()
+    by_graph = {}                 # kernel -> graph -> main-path launches
     results = {}
     for name, g in graphs.items():
         check = srcs[name][:: len(srcs[name]) // N_CHECK][:N_CHECK]
@@ -309,8 +326,7 @@ def main() -> int:
                  seconds=wall, sweeps=res.sweeps,
                  direction_counts=res.direction_counts.tolist(),
                  edges_touched=touched, edges_touched_f64=touched64,
-                 launches={k.__name__: k.launches - b
-                           for k, b in zip(kernels, before)},
+                 launches=tally(by_graph, name, kernels, before),
                  dist_checked_rows=int(len(check)))
         base = results[(name, "default")]
         for run in ("push", "pull", "fused"):
@@ -376,8 +392,7 @@ def main() -> int:
              seconds=wall, sweeps=res.sweeps,
              direction_counts=res.direction_counts.tolist(),
              max_sigma=max_sigma, sigma_exact_below=EXACT_F32,
-             launches={k.__name__: k.launches - b
-                       for k, b in zip(ckernels, before)},
+             launches=tally(by_graph, "rmat16", ckernels, before),
              dist_sigma_checked_rows=int(len(check)))
         del h
     base = cres["default"]
@@ -422,8 +437,7 @@ def main() -> int:
          sigma_checksum=cent.sigma_checksum, radius=cent.radius,
          diameter=cent.diameter, betweenness_max_rel_err=bc_rel,
          betweenness_rtol=BETWEENNESS_RTOL,
-         launches={k.__name__: k.launches - b
-                   for k, b in zip(ckernels, before)})
+         launches=tally(by_graph, "rmat16", ckernels, before))
     claunches = {k.__name__: k.launches for k in ckernels}
     emit(phase="counting_path", launches=claunches)
     for k in ckernels:
@@ -460,7 +474,9 @@ def main() -> int:
             raise AssertionError(f"{name}: the host replay differs from "
                                  f"scipy Dijkstra")
         h = repro_torch.prepare(g, weights=lanes)
+        before = [k.launches for k in wkernels]
         res = h.apsp(check, semiring="tropical")
+        tally(by_graph, name, wkernels, before)
         touched = float(res.edges_touched)
         if not (np.array_equal(res.dist.cpu().numpy(), hdist)
                 and res.sweeps == hsweeps
@@ -500,8 +516,7 @@ def main() -> int:
                  sweeps=res.sweeps,
                  direction_counts=res.direction_counts.tolist(),
                  edges_touched=float(res.edges_touched),
-                 launches={k.__name__: k.launches - b
-                           for k, b in zip(wkernels, before)},
+                 launches=tally(by_graph, name, wkernels, before),
                  dist_checked_rows=int(len(check)))
         base = wres["default"]
         for run, r in wres.items():
@@ -547,7 +562,7 @@ def main() -> int:
     nz_at = (at != 0).to(torch.float32)       # (n_pad, W), exact counts
     sector = 8                                # words per 32 B DRAM sector
 
-    def packed_need(fp_, d_, new_):
+    def packed_need(fp_, d_, new_, nz_=nz_at):
         """Operand bytes and word ops one packed sweep needs on this state.
         A pair (s, j) still unreached that misses must read every operand
         word of column j where frontier row s is active; one that hits
@@ -566,7 +581,7 @@ def main() -> int:
         miss_sec = ((miss.t() @ act_sec) > 0).sum(dim=1)     # (n_pad,)
         sectors = torch.where(miss_sec > 0, miss_sec,
                               hit.any(dim=0).to(miss_sec.dtype))
-        both = act.to(torch.float32) @ nz_at.t()             # (S, n_pad)
+        both = act.to(torch.float32) @ nz_.t()               # (S, n_pad)
         ops = 2.0 * (float(hit.sum())
                      + float(both[miss > 0].double().sum()))
         return 4 * sector * int(sectors.sum()), ops
@@ -585,7 +600,7 @@ def main() -> int:
         for o in outs:
             yield from (flat(o) if isinstance(o, tuple) else (o,))
 
-    def record(name, kern, plain, outs_k, outs_p, bytes_, ops, rate,
+    def record(name, state, kern, plain, outs_k, outs_p, bytes_, ops, rate,
                reps, lib, plain_warm=True, **extra):
         outs_k, outs_p = list(flat(outs_k)), list(flat(outs_p))
         err = 0.0
@@ -605,10 +620,14 @@ def main() -> int:
             plain_ms=cuda_ms(torch, plain, 1, warm=plain_warm),
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=lib, match=True,
+            library_ms=lib, match=True, state=state,
+            launches_by_graph=by_graph.get(name, {}),
             shape=dict(s=s, n_pad=n_pad, words=words), **extra))
         emit(phase="kernel", **rows_out[-1])
 
+    n_run = 4                                 # sweeps per multi-sweep launch
+    rmat_state = f"rmat16, S={s}, after {mid_step} sweeps"
+    rmat_multi = f"{rmat_state}, {n_run} sweeps per launch"
     step = mid_step + 1
     wk = 4 if words % 8 else 8
     io = s * words * 4 + state_bytes(s, n_pad)
@@ -621,16 +640,14 @@ def main() -> int:
 
     out1 = k1_plain()
     need_bytes, need_ops = packed_need(fp, d, out1[0])
-    record("packed_push_sweep", k1, k1_plain, k1(), out1,
+    record("packed_push_sweep", rmat_state, k1, k1_plain, k1(), out1,
            io + need_bytes, need_ops, WORD_OPS_PER_S, 5, library_ms)
 
     def k2():
         return bovm.packed_pull_sweep(fp, at, d, step, bs=8, bn=128, wk=wk)
 
-    record("packed_pull_sweep", k2, k1_plain, k2(), out1,
+    record("packed_pull_sweep", rmat_state, k2, k1_plain, k2(), out1,
            io + need_bytes, need_ops, WORD_OPS_PER_S, 5, library_ms)
-
-    n_run = 4
 
     def k3():
         return bovm.fused_boolean_multisweep(f, at, d, mid_step, n_run,
@@ -639,18 +656,23 @@ def main() -> int:
     def k3_plain():
         return R.fused_boolean_multisweep_ref(f, at, d, mid_step, n_run)
 
+    def multi_need(fp_, at_, d_, nz_, step0, sweeps):
+        """The packed need of the sweeps one multi-sweep launch runs on
+        this state, one packed sweep each, to the first empty one."""
+        b_, o_ = 0, 0.0
+        for t in range(sweeps):
+            new_t, d_next = R.packed_pull_ref(fp_, at_, d_, step0 + 1 + t)
+            nb, no = packed_need(fp_, d_, new_t, nz_)
+            b_, o_, d_ = b_ + nb, o_ + no, d_next
+            if not bool(new_t.any()):
+                break
+            fp_ = pack_bits(new_t != 0)
+        return b_, o_
+
     out3 = k3()
-    # the sweeps the block needs on this state, one packed sweep each
-    fp_t, d_t, b3, o3 = fp, d, 0, 0.0
-    for t in range(n_run):
-        new_t, d_next = R.packed_pull_ref(fp_t, at, d_t, mid_step + 1 + t)
-        nb, no = packed_need(fp_t, d_t, new_t)
-        b3, o3, d_t = b3 + nb, o3 + no, d_next
-        if not bool(new_t.any()):
-            break
-        fp_t = pack_bits(new_t != 0)
-    record("fused_boolean_multisweep", k3, k3_plain, out3, k3_plain(),
-           io + b3, o3, WORD_OPS_PER_S, 3, None,
+    b3, o3 = multi_need(fp, at, d, nz_at, mid_step, n_run)
+    record("fused_boolean_multisweep", rmat_multi, k3, k3_plain, out3,
+           k3_plain(), io + b3, o3, WORD_OPS_PER_S, 3, None,
            library_note=MULTI_SWEEP_NOTE)
 
     adj = pg.adj
@@ -672,8 +694,63 @@ def main() -> int:
     k4_bytes = (s * n_pad + live_k * bk * open_sectors * 32
                 + state_bytes(s, n_pad))
     k4_ops = 2.0 * s * live_k * bk * unreached_cols
-    record("fused_sweep", k4, k4_plain, k4(), k4_plain(), k4_bytes, k4_ops,
-           INT8_OPS_PER_S, 3, library_ms)
+    record("fused_sweep", rmat_state, k4, k4_plain, k4(), k4_plain(),
+           k4_bytes, k4_ops, INT8_OPS_PER_S, 3, library_ms)
+
+    # -- K1 / K2 / K3 on grid256's deep, thin state --------------------------
+    # the per-sweep packed kernels and the fused one where most of their
+    # main-path sweeps run: a thin frontier far from the sources
+    gpg = repro_torch.prepare(graphs["grid256"]).prepared()
+    gat = gpg.adj_pull
+    _, _, gst = next(apsp_engine_blocks(gpg, srcs["grid256"],
+                                        config=EngineConfig(
+                                            mode="pull", use_kernel=True,
+                                            max_steps=GRID_STEPS)))
+    gf, gd = gst.frontier.contiguous(), gst.dist.contiguous()
+    gfp = pack_bits(gf != 0)
+    gnz = (gat != 0).to(torch.float32)
+    grid_state = f"grid256, S={gf.shape[0]}, after {GRID_STEPS} sweeps"
+    gstep = GRID_STEPS + 1
+    yard_note = "fp16 matmul of the rmat16 state: same shapes"
+
+    def g1():
+        return bovm.packed_push_sweep(gfp, gat, gd, gstep, bs=128, bn=128,
+                                      wk=wk)
+
+    def g1_plain():
+        return R.packed_pull_ref(gfp, gat, gd, gstep)
+
+    gout1 = g1_plain()
+    gb1, go1 = packed_need(gfp, gd, gout1[0], gnz)
+    record("packed_push_sweep", grid_state, g1, g1_plain, g1(), gout1,
+           io + gb1, go1, WORD_OPS_PER_S, 5, library_ms,
+           library_note=yard_note)
+
+    def g2():
+        return bovm.packed_pull_sweep(gfp, gat, gd, gstep, bs=8, bn=128,
+                                      wk=wk)
+
+    record("packed_pull_sweep", grid_state, g2, g1_plain, g2(), gout1,
+           io + gb1, go1, WORD_OPS_PER_S, 5, library_ms,
+           library_note=yard_note)
+
+    def g3():
+        return bovm.fused_boolean_multisweep(gf, gat, gd, GRID_STEPS,
+                                             GRID_RUN, bs=128,
+                                             max_sweeps=GRID_RUN)
+
+    def g3_plain():
+        return R.fused_boolean_multisweep_ref(gf, gat, gd, GRID_STEPS,
+                                              GRID_RUN)
+
+    gout3 = g3()
+    gb3, go3 = multi_need(gfp, gat, gd, gnz, GRID_STEPS, GRID_RUN)
+    record("fused_boolean_multisweep",
+           f"{grid_state}, {GRID_RUN} sweeps per launch", g3, g3_plain,
+           gout3, g3_plain(), io + gb3, go3, WORD_OPS_PER_S, 3, None,
+           library_note=MULTI_SWEEP_NOTE)
+    del gpg, gat, gst, gf, gd, gfp, gnz, gout1, gout3
+    torch.cuda.empty_cache()
 
     # -- K5 / K6 on a mid-run counting state, full width ---------------------
     _, _, _, cst = next(counting_apsp_blocks(
@@ -716,7 +793,8 @@ def main() -> int:
     lib5 = cuda_ms(torch, lambda: torch.matmul(fs, adj_f32), 3)
     del adj_f32
     b5, o5 = counting_need(cf, cd)
-    record("fused_counting_sweep", k5, k5_plain, k5(), k5_plain(),
+    record("fused_counting_sweep", rmat_state, k5, k5_plain, k5(),
+           k5_plain(),
            s * n_pad * 21 + b5, o5, WORD_OPS_PER_S, 5, lib5,
            tile_bytes=tile_bytes(cf, cd), max_sigma=float(csg.max()),
            sigma_exact_below=EXACT_F32)
@@ -739,7 +817,8 @@ def main() -> int:
             mid_step + 1 + t)
         if not bool(f_t.any()):
             break
-    record("fused_counting_multisweep", k6, k6_plain, k6(), k6_plain(),
+    record("fused_counting_multisweep", rmat_multi, k6, k6_plain, k6(),
+           k6_plain(),
            s * n_pad * 18 + b6, o6, WORD_OPS_PER_S, 2, None,
            library_note=MULTI_SWEEP_NOTE)
     # -- K7 / K8 / K9 on a mid-run tropical state, full width ----------------
@@ -763,14 +842,20 @@ def main() -> int:
     w_min = lw.min()
     torch.cuda.synchronize()
 
-    # per operand row: its 32 B sectors holding a finite weight, its lanes
-    spr = n_pad // 8
-    lane_k = g.src[: g.n_edges].long()
-    sec_key = torch.unique(lane_k * spr + g.dst[: g.n_edges].long() // 8)
-    sectors_k = torch.bincount(sec_key // spr, minlength=n_pad).double()
-    deg_k = pw.deg.double()
+    def operand_rows(pw_):
+        """Per operand row: its 32 B sectors holding a finite weight, and
+        its lanes (the out-degree)."""
+        g_ = pw_.graph
+        spr = n_pad // 8
+        lane_k = g_.src[: g_.n_edges].long()
+        sec_key = torch.unique(lane_k * spr + g_.dst[: g_.n_edges].long()
+                               // 8)
+        return (torch.bincount(sec_key // spr, minlength=n_pad).double(),
+                pw_.deg.double())
 
-    def minplus_need(f_, d_):
+    sectors_k, deg_k = operand_rows(pw)
+
+    def minplus_need(f_, d_, sectors_k=sectors_k, deg_k=deg_k):
         """Operand bytes and operations one min-plus sweep needs on this
         state.  Bytes: for every k where some row's frontier holds a
         finite distance, the 32 B sectors of operand row k that hold a
@@ -794,7 +879,7 @@ def main() -> int:
         return TR.minplus_sweep_ref(fd, wd, d)
 
     out7 = k7_plain()
-    record("fused_minplus_sweep", k7, k7_plain, k7(), out7,
+    record("fused_minplus_sweep", rmat_state, k7, k7_plain, k7(), out7,
            s * n_pad * 13 + b7, o7, WORD_OPS_PER_S, 3, None,
            plain_warm=False,
            library_note="no single PyTorch call computes a (min,+) product")
@@ -815,7 +900,8 @@ def main() -> int:
                                                indptr=indptr)
         if not bool(f_t.any()):
             break
-    record("fused_minplus_multisweep", k8, k8_plain, k8(), k8_plain(),
+    record("fused_minplus_multisweep", rmat_multi, k8, k8_plain, k8(),
+           k8_plain(),
            s * n_pad * 10 + b8, o8, WORD_OPS_PER_S, 1, None,
            plain_warm=False, library_note=MULTI_SWEEP_NOTE)
 
@@ -833,10 +919,46 @@ def main() -> int:
     lib9 = cuda_ms(torch, lambda: lacc.index_reduce_(0, dst_l, lcand,
                                                      "amin"), 5)
     del lcand, lacc
-    record("sparse_relax_sweep", k9, k9_plain, k9(), k9_plain(),
+    lib9_note = "index_reduce_ amin on precomputed candidates: scatter only"
+    record("sparse_relax_sweep", rmat_state, k9, k9_plain, k9(),
+           k9_plain(),
            s * n_pad * 10 + l9, o7, WORD_OPS_PER_S, 5, lib9,
-           library_note="index_reduce_ amin on precomputed candidates: "
-                        "scatter only")
+           library_note=lib9_note)
+
+    # -- K9 on grid256's deep, thin weighted state ---------------------------
+    del wd, fd, pw
+    torch.cuda.empty_cache()
+    pw2 = repro_torch.prepare(graphs["grid256"],
+                              weights=lanes_of["grid256"]).prepared_weighted()
+    g2, lw2 = pw2.graph, pw2.w_edges
+    gsrc = torch.from_numpy(srcs["grid256"].astype(np.int64)).cuda()
+    f2 = torch.zeros((len(gsrc), n_pad), dtype=torch.int8, device="cuda")
+    f2[torch.arange(len(gsrc), device="cuda"), gsrc] = 1
+    d2 = torch.where(f2 != 0, 0.0, float("inf")).to(torch.float32)
+    indptr2 = common.lane_offsets(g2.src, n_pad)
+    for _ in range(GRID_STEPS):
+        f2, d2 = tropical.sparse_relax_sweep(f2, d2, g2.src, g2.dst, lw2,
+                                             indptr=indptr2)
+    _, o9g, l9g = minplus_need(f2, d2, *operand_rows(pw2))
+
+    def g9():
+        return tropical.sparse_relax_sweep(f2, d2, g2.src, g2.dst, lw2,
+                                           indptr=indptr2)
+
+    def g9_plain():
+        return TR.sparse_relax_ref(f2, d2, g2.src, g2.dst, lw2)
+
+    src_l, dst_l = g2.src.long(), g2.dst.long()
+    lcand = torch.where(f2.t()[src_l] != 0, d2.t()[src_l] + lw2[:, None],
+                        inf)
+    lacc = d2.t().contiguous()
+    lib9g = cuda_ms(torch, lambda: lacc.index_reduce_(0, dst_l, lcand,
+                                                      "amin"), 5)
+    del lcand, lacc
+    record("sparse_relax_sweep",
+           f"grid256, S={len(gsrc)}, after {GRID_STEPS} sweeps", g9,
+           g9_plain, g9(), g9_plain(), s * n_pad * 10 + l9g, o9g,
+           WORD_OPS_PER_S, 5, lib9g, library_note=lib9_note)
 
     # launches of the comparisons above do not count: report the main path's
     for row in rows_out:

@@ -191,10 +191,11 @@ def resolve_fused_steps(semiring, form: str, *, fused_steps: int,
     registers a fused form for ``form``, and only when one block of the
     fused kernel fits the per-block shared-memory budget
     (``smem_bytes(form="fused")``, Hopper's 232,448 bytes unless
-    ``budget`` overrides it).  The port's fused kernel streams the operand
-    and keeps only its row tile's state on chip, so this gate admits n_pad
-    up to about 71.5 k, where the JAX package's whole-operand VMEM gate
-    stops near 7.8 k.  Between the two the JAX engine runs per-sweep and
+    ``budget`` overrides it).  The port's boolean fused kernel streams
+    the operand and spreads its row tile's state over a cluster of CTAs,
+    so this gate admits n_pad up to 264,704 (each CTA holds its slice of
+    the state plus the tile's active-word list), where the JAX package's
+    whole-operand VMEM gate stops near 7.8 k.  Between the two the JAX engine runs per-sweep and
     the port fuses; results agree, except ``edges_touched``, which the
     fused loop does not update."""
     if not fused_steps or not use_kernel or not kernel_registry.has(semiring):

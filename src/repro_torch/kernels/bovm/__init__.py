@@ -10,10 +10,11 @@ def smem_bytes(*, form: str = "fused", n: int = 1152, **_) -> int:
     """Shared memory one block of the form's kernel holds (the
     counterpart of the JAX package's ``vmem_bytes``).
 
-    Only ``form="fused"`` is priced: the multi-sweep kernel at padded
-    node count ``n`` (its on-chip state grows with n, the operand is
-    streamed), the size ``resolve_fused_steps`` gates on.  The per-sweep
-    kernels size their own few-KB tiles at launch."""
+    Only ``form="fused"`` is priced: one CTA of the multi-sweep kernel
+    at padded node count ``n`` (its slice of the row tile's state and the
+    tile's active-word list grow with n, the operand is streamed), the
+    size ``resolve_fused_steps`` gates on.  The per-sweep kernels size
+    their own tiles at launch."""
     if form != "fused":
         raise ValueError(f"only the fused form is priced, not {form!r}")
     return fused_smem_bytes(n)
@@ -25,7 +26,8 @@ registry.register(registry.KernelSet(
            "pull": packed_pull_sweep},
     smem_bytes=smem_bytes,
     notes="bit-packed push and pull word-AND/OR sweeps on the CUDA cores "
-          "(no float GEMM on the boolean kernel path; the int8 GEMM push "
-          "survives as push_f32) + the fused multi-sweep kernel",
+          "(no float GEMM on the boolean kernel path; the int8 "
+          "tensor-core GEMM push survives as push_f32) + the fused "
+          "multi-sweep kernel, one thread block cluster per row tile",
     fused_forms={"push": fused_boolean_multisweep},
 ))

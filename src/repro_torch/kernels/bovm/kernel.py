@@ -33,14 +33,19 @@ from . import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "bovm.cu"
 
-FUSED_ROWS = 8          # source rows per K3 block, passed to the kernel
+FUSED_ROWS = 32         # source rows per K3 tile (16 or 32)
+FUSED_CLUSTER = 16      # CTAs per K3 tile: a thread block cluster
+FUSED_LIST_CHUNK = 256  # K3 active words staged per pass (kListChunk)
+FUSED_MASK_PITCH = 33   # K3 row-mask words per staged word (kMaskPitch)
+FUSED_ROW_MULTIPLE = 8  # S the K3 wrapper takes; ragged tiles are masked
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "dawn_packed_push_sweep": [_P] * 7 + [_I] * 8 + [_P],
     "dawn_packed_pull_sweep": [_P] * 5 + [_I] * 7 + [_P],
-    "dawn_fused_boolean_multisweep": [_P] * 7 + [_I] * 7 + [_P],
-    "dawn_fused_sweep": [_P] * 7 + [_I] * 8 + [_P],
+    "dawn_fused_boolean_multisweep": [_P] * 9 + [_I] * 8 + [_P],
+    "dawn_fused_active_clusters": [_I] * 4 + [_P],
+    "dawn_fused_sweep": [_P] * 7 + [_I] * 7 + [_P],
 }
 
 
@@ -139,12 +144,31 @@ def packed_pull_sweep(frontier_packed: torch.Tensor,
 # K3: fused multi-sweep
 # --------------------------------------------------------------------------
 
-def fused_smem_bytes(n: int, rows: int = FUSED_ROWS) -> int:
-    """Shared memory of one K3 block of ``rows`` source rows at padded
-    node count ``n``: current, next and visited packed rows plus the
-    active-word list.  The launch passes this size to the kernel."""
+def fused_smem_bytes(n: int, rows: int = FUSED_ROWS,
+                     cluster: int = FUSED_CLUSTER) -> int:
+    """Shared memory of one K3 CTA at padded node count ``n``: the visited
+    bits (``rows`` words) and per-column hit masks (32 words) of its slice
+    of ceil(W / cluster) packed words, the row masks of one active-list
+    pass (one word per bit of each staged word), and the tile's
+    active-word list (word, row-OR).  The launch passes this size to the
+    kernel."""
     words = max(n // 32, 1)
-    return 4 * words * (3 * rows + 2)
+    slice_words = -(-words // cluster)
+    return 4 * ((rows + 32) * slice_words
+                + FUSED_MASK_PITCH * FUSED_LIST_CHUNK + 2 * words)
+
+
+def fused_active_clusters(s: int, n: int, rows: int = FUSED_ROWS,
+                          cluster: int = FUSED_CLUSTER) -> int:
+    """How many K3 clusters of this shape the card runs at once (the
+    occupancy query of the CUDA runtime); the card only."""
+    out = ctypes.c_int(0)
+    status = _lib().dawn_fused_active_clusters(
+        s, rows, cluster, fused_smem_bytes(n, rows, cluster),
+        ctypes.byref(out))
+    if status != 0:
+        raise RuntimeError(f"dawn_fused_active_clusters: error {status}")
+    return out.value
 
 
 def fused_boolean_multisweep(frontier: torch.Tensor,
@@ -160,14 +184,15 @@ def fused_boolean_multisweep(frontier: torch.Tensor,
     scalar): ``prod`` is the most productive sweeps of any row tile and
     ``stopped`` whether every tile converged, so the loop driver's
     accounting is ``executed = stopped ? prod + 1 : n_run``.  The kernel
-    runs FUSED_ROWS source rows per block whatever ``bs`` is; rows evolve
+    runs FUSED_ROWS source rows per cluster of FUSED_CLUSTER CTAs whatever
+    ``bs`` is, masking the rows past S in the last tile; rows evolve
     independently, so no result depends on the tile."""
     s, n = frontier.shape
     w = adj_in_packed.shape[1]
     if adj_in_packed.shape != (n, w) or dist.shape != (s, n) or w * 32 != n:
         raise ValueError(f"shapes: {tuple(frontier.shape)}, "
                          f"{tuple(adj_in_packed.shape)}, {tuple(dist.shape)}")
-    if s % bs or n % 128 or s % FUSED_ROWS:
+    if s % bs or n % 128 or s % FUSED_ROW_MULTIPLE:
         raise ValueError(f"tiles do not divide the shapes: {(s, n)} vs "
                          f"bs={bs}")
     n_run = int(n_run)
@@ -180,19 +205,23 @@ def fused_boolean_multisweep(frontier: torch.Tensor,
                       adj_in_packed=(adj_in_packed, torch.int32),
                       dist=(dist, torch.int32))
     fp = pack_bits(frontier != 0)
-    smem = fused_smem_bytes(n)
+    smem = fused_smem_bytes(n, FUSED_ROWS, FUSED_CLUSTER)
     if smem > common.SMEM_BUDGET_BYTES:
         raise ValueError(f"n={n}: the fused kernel's shared memory "
                          f"({smem} B) exceeds the budget")
-    tiles = s // FUSED_ROWS
-    new = torch.empty((s, n), dtype=torch.int8, device=dist.device)
+    tiles = -(-s // FUSED_ROWS)
+    dev = dist.device
+    new = torch.empty((s, n), dtype=torch.int8, device=dev)
     dist_out = torch.empty_like(dist)
-    prod = torch.empty(tiles, dtype=torch.int32, device=dist.device)
-    stop = torch.empty(tiles, dtype=torch.int32, device=dist.device)
-    _launch("dawn_fused_boolean_multisweep", dist.device, _ptr(fp),
+    prod = torch.empty(tiles, dtype=torch.int32, device=dev)
+    stop = torch.empty(tiles, dtype=torch.int32, device=dev)
+    # next-frontier words and their row-OR, double-buffered by sweep parity
+    fbuf = torch.empty((2, s, w), dtype=torch.int32, device=dev)
+    ubuf = torch.empty((2, tiles, w), dtype=torch.int32, device=dev)
+    _launch("dawn_fused_boolean_multisweep", dev, _ptr(fp),
             _ptr(adj_in_packed), _ptr(dist), _ptr(new), _ptr(dist_out),
-            _ptr(prod), _ptr(stop), s, n, w, FUSED_ROWS, smem, int(step),
-            n_run)
+            _ptr(prod), _ptr(stop), _ptr(fbuf), _ptr(ubuf), s, n, w,
+            FUSED_ROWS, FUSED_CLUSTER, smem, int(step), n_run)
     fused_boolean_multisweep.launches += 1
     return new, dist_out, prod.max(), stop.min() > 0
 
@@ -205,10 +234,11 @@ def fused_sweep(frontier: torch.Tensor, adj: torch.Tensor, dist: torch.Tensor,
                 step, *, bs: int = 128, bn: int = 128, bk: int = 512):
     """One masked-GEMM DAWN sweep (K4).  frontier (S, k) int8, adj (k, n)
     int8, dist (S, n) int32; S % bs == 0, n % bn == 0, k % bk == 0.  The
-    kernel accumulates in int32 (exact); its plain version in f32 (exact
-    below 2^24), so both give the same ``new`` and ``dist``.  On the card
-    ``bs`` must be a multiple of 8, and the kernel's launch refuses a
-    ``bn`` or ``bk`` its column and contraction stages do not divide."""
+    kernel accumulates in int32 on the tensor cores (exact); its plain
+    version in f32 (exact below 2^24), so both give the same ``new`` and
+    ``dist``.  On the card ``bs`` must be a multiple of 8, and the
+    kernel's launch refuses a ``bn`` that is not a multiple of 64 or a
+    ``bk`` that is not a multiple of 32."""
     s, k = frontier.shape
     ka, n = adj.shape
     if ka != k or dist.shape != (s, n):
@@ -223,14 +253,13 @@ def fused_sweep(frontier: torch.Tensor, adj: torch.Tensor, dist: torch.Tensor,
                              o_occ=o_occ)
     common.check_cuda(frontier=(frontier, torch.int8),
                       adj=(adj, torch.int8), dist=(dist, torch.int32))
-    tm = common.tile_rows(bs, 32)
-    if tm < 8:
+    if bs % 8:
         raise ValueError(f"the kernel needs bs % 8 == 0, got bs={bs}")
     new = torch.empty((s, n), dtype=torch.int8, device=dist.device)
     dist_out = torch.empty_like(dist)
     _launch("dawn_fused_sweep", dist.device, _ptr(frontier), _ptr(adj),
             _ptr(dist), _ptr(new), _ptr(dist_out), _ptr(f_occ.contiguous()),
-            _ptr(o_occ.contiguous()), s, n, k, tm, bs, bn, bk, int(step))
+            _ptr(o_occ.contiguous()), s, n, k, bs, bn, bk, int(step))
     fused_sweep.launches += 1
     return new, dist_out
 

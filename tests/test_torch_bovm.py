@@ -68,17 +68,20 @@ def test_registry_boolean_set():
 
 
 def test_smem_budget_and_fused_gate():
-    """Only the fused form is priced; its gate admits the full-width
-    smoke graph (n_pad 65,664) and trips above the kernel's on-chip state
-    limit."""
+    """Only the fused form is priced, at one CTA of its cluster; the gate
+    admits the full-width smoke graph (n_pad 65,664) and n_pad up to
+    264,704, and trips above it."""
     ks = registry.get("boolean")
     for form in ("push", "pull", "push_f32"):
         with pytest.raises(ValueError, match="only the fused form"):
             ks.smem_bytes(form=form)
     assert ks.smem_bytes(form="fused", n=65_664) == \
-        bovm.fused_smem_bytes(65_664, bovm.kernel.FUSED_ROWS)
+        bovm.fused_smem_bytes(65_664, bovm.kernel.FUSED_ROWS,
+                              bovm.kernel.FUSED_CLUSTER)
     assert ks.smem_bytes(form="fused", n=65_664) <= common.SMEM_BUDGET_BYTES
-    assert ks.smem_bytes(form="fused", n=4 * 65_664) > \
+    assert ks.smem_bytes(form="fused", n=264_704) <= \
+        common.SMEM_BUDGET_BYTES
+    assert ks.smem_bytes(form="fused", n=264_832) > \
         common.SMEM_BUDGET_BYTES
     kw = dict(max_steps=64, use_kernel=True, bs=128)
     assert resolve_fused_steps("boolean", "push", fused_steps=-1,
@@ -86,7 +89,9 @@ def test_smem_budget_and_fused_gate():
     assert resolve_fused_steps("boolean", "push", fused_steps=4,
                                n_pad=65_664, **kw) == 4
     assert resolve_fused_steps("boolean", "push", fused_steps=-1,
-                               n_pad=80_000, **kw) is None
+                               n_pad=264_704, **kw) == 64
+    assert resolve_fused_steps("boolean", "push", fused_steps=-1,
+                               n_pad=264_832, **kw) is None
     assert resolve_fused_steps("boolean", "pull", fused_steps=-1,
                                n_pad=1152, **kw) is None
     assert resolve_fused_steps("boolean", "push", fused_steps=-1,
@@ -94,6 +99,59 @@ def test_smem_budget_and_fused_gate():
                                bs=128) is None
     assert resolve_fused_steps("tropical", "dense", fused_steps=-1,
                                n_pad=1152, **kw) == 64
+
+
+# (s, n, bs, n_run, max_sweeps, accepted): the shapes the K3 wrapper took
+# and refused before its kernel moved to 32-row cluster tiles
+K3_SHAPES = [
+    (16, 256, 16, 2, 2, True), (8, 128, 8, 1, 1, True),
+    (40, 128, 8, 3, 3, True), (24, 384, 24, 0, 1, True),
+    (12, 128, 4, 1, 1, False),            # S not a multiple of 8
+    (16, 192, 16, 1, 1, False),           # n not a multiple of 128
+    (16, 256, 32, 1, 1, False),           # bs does not divide S
+    (16, 256, 16, 3, 2, False),           # n_run above max_sweeps
+]
+
+# (s, n, k, bs, bn, bk, accepted) for K4 on the CPU (bs % 8 is a card check)
+K4_SHAPES = [
+    (8, 256, 256, 8, 128, 128, True), (12, 256, 256, 4, 128, 128, True),
+    (40, 448, 448, 8, 64, 32, True), (16, 256, 512, 16, 128, 256, True),
+    (16, 256, 256, 16, 96, 128, False),   # bn does not divide n
+    (16, 256, 256, 16, 128, 96, False),   # bk does not divide k
+    (16, 256, 256, 32, 128, 128, False),  # bs does not divide S
+]
+
+
+@pytest.mark.parametrize("s,n,bs,n_run,max_sweeps,accepted", K3_SHAPES)
+def test_fused_multisweep_accepts_same_shapes(s, n, bs, n_run, max_sweeps,
+                                              accepted):
+    rng = np.random.default_rng(s + n)
+    f, dist = _state(rng, s, n)
+    at = _t((rng.random((n, n // 32)) < 0.1).astype(np.int32))
+    call = lambda: bovm.fused_boolean_multisweep(  # noqa: E731
+        _t(f), at, _t(dist), 0, n_run, bs=bs, max_sweeps=max_sweeps)
+    if accepted:
+        new, d, prod, stopped = call()
+        assert new.shape == (s, n) and d.dtype == torch.int32
+    else:
+        with pytest.raises(ValueError):
+            call()
+
+
+@pytest.mark.parametrize("s,n,k,bs,bn,bk,accepted", K4_SHAPES)
+def test_fused_sweep_accepts_same_shapes(s, n, k, bs, bn, bk, accepted):
+    rng = np.random.default_rng(s + n + k)
+    f = _t((rng.random((s, k)) < 0.05).astype(np.int8))
+    adj = _t((rng.random((k, n)) < 0.05).astype(np.int8))
+    dist = _t(np.where(rng.random((s, n)) < 0.2, 1, -1).astype(np.int32))
+    call = lambda: bovm.fused_sweep(f, adj, dist, 2, bs=bs, bn=bn,  # noqa
+                                    bk=bk)
+    if accepted:
+        new, d = call()
+        assert new.shape == (s, n) and d.shape == (s, n)
+    else:
+        with pytest.raises(ValueError):
+            call()
 
 
 def test_block_any_matches_reshape_reduction():

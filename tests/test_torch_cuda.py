@@ -15,6 +15,7 @@ from repro_torch.core.weighted import (WeightedConfig, prepare_weighted,
                                        weighted_apsp)
 from repro_torch.graph import generators as gen
 from repro_torch.kernels import bovm, common, counting, tropical
+from repro_torch.kernels.bovm import ref as R
 
 pytestmark = pytest.mark.cuda
 
@@ -58,33 +59,88 @@ def test_packed_kernels_match_plain(cuda, s, n, bs, wk):
     _same(want, got)
 
 
-@pytest.mark.parametrize("n_run", [0, 1, 3, 9])
-def test_fused_kernel_matches_plain(cuda, n_run):
-    g = gen.watts_strogatz(500, 6, 0.05, seed=n_run, device="cpu")
+def _fused_graph(kind):
+    if kind == "ws":                       # n_pad 512: 16 words
+        return gen.watts_strogatz(500, 6, 0.05, seed=3, device="cpu")
+    if kind == "er":                       # 36 words: the cluster leaves 4
+        return gen.erdos_renyi(1100, 4.0, seed=5, device="cpu")
+    if kind == "grid":                     # deep: diameter 30, 12 words
+        return gen.grid2d(16, 16, device="cpu")
+    return gen.grid2d(96, 96, device="cpu")  # 292 words: > 1 list pass
+
+
+@pytest.mark.parametrize("kind,s,n_run", [
+    ("ws", 16, 0), ("ws", 16, 1), ("ws", 16, 3), ("ws", 16, 9),
+    ("ws", 8, 1), ("ws", 40, 4), ("ws", 128, 6), ("er", 40, 5),
+    ("er", 128, 0), ("grid", 16, 60), ("grid", 40, 1),
+    ("grid96", 128, 400)])
+def test_fused_kernel_matches_plain(cuda, kind, s, n_run):
+    """K3 (32-row tiles, one cluster per tile) against its plain version:
+    ragged last tiles (S = 8, 40), word counts the cluster does not divide,
+    deep grids run past convergence, n_run 0 and 1."""
+    g = _fused_graph(kind)
     n = g.n_padded()
     at = g.to_pull_packed(n)
-    f = torch.zeros((16, n), dtype=torch.int8)
-    f[torch.arange(16), torch.arange(16) * 31] = 1
+    rng = np.random.default_rng(s + n)
+    src = torch.from_numpy(rng.choice(g.n_nodes, s, replace=False))
+    f = torch.zeros((s, n), dtype=torch.int8)
+    f[torch.arange(s), src] = 1
     d = torch.where(f != 0, 0, -1).to(torch.int32)
     d[:, g.n_nodes:] = 0
-    want = bovm.fused_boolean_multisweep(f, at, d, 0, n_run, bs=16,
-                                         max_sweeps=max(n_run, 1))
+    kw = dict(bs=8 if s % 16 else 16, max_sweeps=max(n_run, 1))
+    want = R.fused_boolean_multisweep_ref(f.to(cuda), at.to(cuda),
+                                          d.to(cuda), 0, n_run)
+    before = bovm.fused_boolean_multisweep.launches
     got = bovm.fused_boolean_multisweep(f.to(cuda), at.to(cuda), d.to(cuda),
-                                        0, n_run, bs=16,
-                                        max_sweeps=max(n_run, 1))
-    _same(want, got)
+                                        0, n_run, **kw)
+    torch.cuda.synchronize()
+    assert bovm.fused_boolean_multisweep.launches == before + 1
+    _same(want[:2], got[:2])
+    assert int(want[2]) == int(got[2])
+    assert bool(want[3]) == bool(got[3])
 
 
-@pytest.mark.parametrize("s,n,bs,bk", [(128, 512, 128, 128),
-                                       (16, 256, 16, 256)])
-def test_int8_kernel_matches_plain(cuda, s, n, bs, bk):
+def _int8_state(kind, s, n, bs, bk, seed):
+    """A dense state (every occupancy tile live) or a sparse one: the
+    frontier in two k-blocks and the unreached targets in two 128-column
+    tiles, so f_occ and o_occ skip most tiles."""
+    if kind == "dense":
+        return _state(seed, s, n)
+    rng = np.random.default_rng(seed)
+    f = np.zeros((s, n), np.int8)
+    for kb in rng.choice(n // bk, 2, replace=False):
+        rows = rng.choice(s, max(1, s // 4), replace=False)
+        f[np.ix_(rows, np.arange(kb * bk, kb * bk + bk))] = \
+            (rng.random((len(rows), bk)) < 0.1)
+    d = np.ones((s, n), np.int32)
+    for tj in rng.choice(n // 128, 2, replace=False):
+        d[:, tj * 128: tj * 128 + 128] = np.where(
+            rng.random((s, 128)) < 0.5, -1, 1)
+    return torch.from_numpy(f), torch.from_numpy(d)
+
+
+@pytest.mark.parametrize("s,n,bs,bn,bk,kind", [
+    (128, 512, 128, 128, 128, "dense"), (16, 256, 16, 128, 256, "dense"),
+    (8, 1024, 8, 128, 128, "dense"), (256, 1024, 128, 128, 512, "dense"),
+    (40, 448, 8, 64, 32, "dense"), (128, 1024, 32, 128, 512, "sparse"),
+    (16, 2048, 8, 128, 128, "sparse"), (256, 768, 64, 128, 128, "sparse")])
+def test_int8_kernel_matches_plain(cuda, s, n, bs, bn, bk, kind):
+    """K4 (int8 tensor-core product) against its plain version: S from 8
+    to 256, bk 32 to 512, a ragged last column block (n = 448), and
+    states whose occupancy tables skip most tiles or none."""
     adj = (torch.rand((n, n), generator=torch.Generator().manual_seed(n))
            < 0.02).to(torch.int8)
-    f, d = _state(n, s, n)
-    want = bovm.fused_sweep(f, adj, d, 6, bs=bs, bn=128, bk=bk)
+    f, d = _int8_state(kind, s, n, bs, bk, n + s)
+    want = bovm.fused_sweep(f, adj, d, 6, bs=bs, bn=bn, bk=bk)
+    before = bovm.fused_sweep.launches
     got = bovm.fused_sweep(f.to(cuda), adj.to(cuda), d.to(cuda), 6, bs=bs,
-                           bn=128, bk=bk)
+                           bn=bn, bk=bk)
+    torch.cuda.synchronize()
+    assert bovm.fused_sweep.launches == before + 1
     _same(want, got)
+    with pytest.raises(ValueError, match="bs % 8"):
+        bovm.fused_sweep(f.to(cuda), adj.to(cuda), d.to(cuda), 6, bs=4,
+                         bn=bn, bk=bk)
 
 
 @pytest.mark.parametrize("opts", [dict(), dict(mode="push"),
