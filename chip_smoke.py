@@ -16,10 +16,12 @@ betweenness against a float64 Brandes on the host, weighted distances
 against scipy's Dijkstra and a float32 Bellman-Ford replay on the host,
 and holds every kernel bit-identical to its plain PyTorch version at
 full width: on rmat16 after 2 sweeps, and K1-K3 and K9 also on grid256's
-thin frontier after 200 sweeps, where most of their launches run.  Each
-kernel line carries its state and its main-path launches per graph
-(``tools/kernel_table.py`` ranks the kernels from them).  One JSON line
-per phase; the last line is
+thin frontier after 200 sweeps, where most of their launches run; the
+two live-word index builders K6 and K7 read (``nonzero_words``,
+``finite_words``) are timed and held to their plain versions on the
+rmat16 operands (phase ``index``).  Each kernel line carries its state
+and its main-path launches per graph (``tools/kernel_table.py`` ranks
+the kernels from them).  One JSON line per phase; the last line is
 ``{"ok": true, "device": {...}}``.
 Any failure raises and the script exits non-zero.  Without CUDA, or
 outside a checkout of the repository, it exits non-zero at once.
@@ -85,6 +87,9 @@ REPLACES = {
     "fused_minplus_sweep": "src/repro/kernels/tropical/kernel.py:128",
     "fused_minplus_multisweep": "src/repro/kernels/tropical/kernel.py:210",
     "sparse_relax_sweep": "src/repro/kernels/tropical/kernel.py:302",
+    # the live-word index builders serve the ports of K6 and K7
+    "nonzero_words": "src/repro/kernels/counting/kernel.py:184",
+    "finite_words": "src/repro/kernels/tropical/kernel.py:128",
 }
 MULTI_SWEEP_NOTE = "no single PyTorch call computes a multi-sweep block"
 
@@ -241,10 +246,10 @@ def main() -> int:
     kernels = (bovm.packed_push_sweep, bovm.packed_pull_sweep,
                bovm.fused_boolean_multisweep, bovm.fused_sweep)
     ckernels = (counting.fused_counting_sweep,
-                counting.fused_counting_multisweep)
+                counting.fused_counting_multisweep, counting.nonzero_words)
     wkernels = (tropical.fused_minplus_sweep,
                 tropical.fused_minplus_multisweep,
-                tropical.sparse_relax_sweep)
+                tropical.sparse_relax_sweep, tropical.finite_words)
     sources_of = {k.__name__: str(Path(sys.modules[k.__module__].SOURCE)
                                   .relative_to(ROOT))
                   for k in kernels + ckernels + wkernels}
@@ -370,6 +375,8 @@ def main() -> int:
     for run, opts in cruns.items():
         h = repro_torch.prepare(g, **opts)
         h.prepared().adj                     # operand build = set-up
+        if run == "fused":
+            h.prepared().adj_index           # K6's live-word index, too
         before = [k.launches for k in ckernels]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -495,6 +502,8 @@ def main() -> int:
             h = repro_torch.prepare(g, weights=lanes, **opts)
             if run != "sparse":
                 h.prepared_weighted().wdense     # operand build = set-up
+            if run in ("default", "dense"):
+                h.prepared_weighted().wdense_index   # K7's index, too
             before = [k.launches for k in wkernels]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -766,14 +775,22 @@ def main() -> int:
 
     def counting_need(f_, d_):
         """Operand bytes and f32 adds one counting sweep needs on this
-        state.  Bytes: the operand rows k in any row's frontier, in the
-        32 B sectors (32 columns) that hold an unreached target of any
-        row.  Adds: one per (row s, edge k -> j) with k in s's frontier and
-        j unreached in s; a zero operand byte needs none."""
-        act_k = int((f_ != 0).any(dim=0).sum())
-        open_sec = int((d_ < 0).any(dim=0).reshape(-1, 32).any(dim=1).sum())
+        state.  Bytes: for every operand row k in any row's frontier, the
+        32 B sectors (32 columns) that hold a non-zero byte in a column
+        with an unreached target of any row.  Adds: one per (row s, edge
+        k -> j) with k in s's frontier and j unreached in s; a zero
+        operand byte needs none.  Also the bytes of the earlier, coarser
+        rule, which charged every open sector of each active row, zeros
+        included."""
+        act = (f_ != 0).any(dim=0)
+        open_col = (d_ < 0).any(dim=0)
+        lane = act[lane_src] & open_col[lane_dst]
+        sectors = torch.unique(lane_src[lane] * (n_pad // 32)
+                               + lane_dst[lane] // 32).numel()
+        old = int(act.sum()) * int(open_col.reshape(-1, 32).any(dim=1)
+                                   .sum()) * 32
         adds = float(((f_[:, lane_src] != 0) & (d_[:, lane_dst] < 0)).sum())
-        return act_k * open_sec * 32, adds
+        return sectors * 32, adds, old
 
     def tile_bytes(f_, d_):
         """Operand bytes of the live (k-block, column-tile) pairs at the
@@ -792,26 +809,62 @@ def main() -> int:
     adj_f32 = adj.to(torch.float32)          # 17.2 GB, the yardstick only
     lib5 = cuda_ms(torch, lambda: torch.matmul(fs, adj_f32), 3)
     del adj_f32
-    b5, o5 = counting_need(cf, cd)
+    b5, o5, old5 = counting_need(cf, cd)
     record("fused_counting_sweep", rmat_state, k5, k5_plain, k5(),
            k5_plain(),
            s * n_pad * 21 + b5, o5, WORD_OPS_PER_S, 5, lib5,
            tile_bytes=tile_bytes(cf, cd), max_sigma=float(csg.max()),
            sigma_exact_below=EXACT_F32)
 
+    # K6's live-word index: built once per prepared graph, timed alone
+    def index_row(name, build, plain, operand, per_word):
+        got, want = build(), plain()
+        if not (torch.equal(got.offsets, want.offsets)
+                and torch.equal(got.words, want.words)
+                and got.rows_live == want.rows_live):
+            raise AssertionError(f"{name}: index differs from its plain "
+                                 f"version")
+        rows = operand.shape[0]
+        index_bytes = 4 * (rows + 1 + got.words.numel())
+        t_bytes = (operand.numel() * operand.element_size()
+                   + index_bytes) / HBM_BYTES_PER_S * 1e3
+        rows_out.append(dict(
+            name=name, route="cuda", source=sources_of[name],
+            replaces=REPLACES[name], launches=launches[name],
+            max_abs_err=0.0, ms=cuda_ms(torch, build, 2),
+            plain_ms=cuda_ms(torch, plain, 1), bound_ms=t_bytes,
+            bound_by="bytes", library_ms=None, match=True,
+            state=f"rmat16, the {operand.dtype} operand, n_pad {n_pad}",
+            launches_by_graph=by_graph.get(name, {}),
+            shape=dict(rows=rows, n_pad=n_pad, per_word=per_word),
+            library_note="no single PyTorch call builds a compacted "
+                         "per-row word list"))
+        emit(phase="index", name=name, index_ms=rows_out[-1]["ms"],
+             plain_ms=rows_out[-1]["plain_ms"],
+             bound_ms=rows_out[-1]["bound_ms"], live_words=got.words.numel(),
+             rows_live=got.rows_live, index_bytes=index_bytes,
+             bitmap_bytes=rows * (operand.shape[1] // per_word) // 8,
+             match=True)
+        emit(phase="kernel", **rows_out[-1])
+        return got
+
+    cidx = index_row("nonzero_words", lambda: counting.nonzero_words(adj),
+                     lambda: CR.nonzero_words_ref(adj), adj, 16)
+
     def k6():
         return counting.fused_counting_multisweep(
-            cf, adj, (cd, csg), mid_step, n_run, bs=128, max_sweeps=n_run)
+            cf, adj, (cd, csg), mid_step, n_run, bs=128, max_sweeps=n_run,
+            index=cidx)
 
     def k6_plain():
         return CR.fused_counting_multisweep_ref(cf, adj, cd, csg, mid_step,
                                                 n_run)
 
     # the sweeps the block needs on this state
-    f_t, d_t, sg_t, b6, o6 = cf, cd, csg, 0, 0.0
+    f_t, d_t, sg_t, b6, o6, old6 = cf, cd, csg, 0, 0.0, 0
     for t in range(n_run):
-        nb, no = counting_need(f_t, d_t)
-        b6, o6 = b6 + nb, o6 + no
+        nb, no, nold = counting_need(f_t, d_t)
+        b6, o6, old6 = b6 + nb, o6 + no, old6 + nold
         f_t, d_t, sg_t = CR.counting_sweep_ref(
             torch.where(f_t != 0, sg_t, 0.0), adj, d_t, sg_t,
             mid_step + 1 + t)
@@ -821,9 +874,15 @@ def main() -> int:
            k6_plain(),
            s * n_pad * 18 + b6, o6, WORD_OPS_PER_S, 2, None,
            library_note=MULTI_SWEEP_NOTE)
+    # K5 / K6's operand bytes, beside those of the earlier, coarser rule
+    emit(phase="bound_recount", rule="sectors holding a non-zero byte in "
+         "an open column (earlier: every open sector of an active row)",
+         fused_counting_sweep=dict(operand_bytes=b5, open_sector_bytes=old5),
+         fused_counting_multisweep=dict(operand_bytes=b6,
+                                        open_sector_bytes=old6))
     # -- K7 / K8 / K9 on a mid-run tropical state, full width ----------------
     # free the boolean and counting operands before the 17.2 GB f32 one
-    del adj, at, pg, lib_f, fs, cf, cd, csg, cst, f, d, fp, st
+    del adj, at, pg, lib_f, fs, cf, cd, csg, cst, f, d, fp, st, cidx
     torch.cuda.empty_cache()
     pw = repro_torch.prepare(graphs["rmat16"],
                              weights=lanes_of["rmat16"]).prepared_weighted()
@@ -870,10 +929,12 @@ def main() -> int:
         return 32.0 * float(act_k @ sectors_k), ops, lane_bytes
 
     b7, o7, l9 = minplus_need(f, d)
+    widx = index_row("finite_words", lambda: tropical.finite_words(wd),
+                     lambda: TR.finite_words_ref(wd), wd, 4)
 
     def k7():
         return tropical.fused_minplus_sweep(fd, wd, d, w_min, bs=128,
-                                            bn=128, bk=128)
+                                            bn=128, bk=128, index=widx)
 
     def k7_plain():
         return TR.minplus_sweep_ref(fd, wd, d)
@@ -926,7 +987,7 @@ def main() -> int:
            library_note=lib9_note)
 
     # -- K9 on grid256's deep, thin weighted state ---------------------------
-    del wd, fd, pw
+    del wd, fd, pw, widx
     torch.cuda.empty_cache()
     pw2 = repro_torch.prepare(graphs["grid256"],
                               weights=lanes_of["grid256"]).prepared_weighted()

@@ -95,7 +95,7 @@ def _run_counting_batch(adj, src_idx, dst_idx, deg, sources: torch.Tensor,
                         n_valid: int, *, cfg: CentralityConfig, n_real: int,
                         n_pad: int, max_steps: int, use_kernel: bool,
                         forced_dir: Optional[int],
-                        fused_steps: int = 0) -> S.SweepState:
+                        fused_steps: int = 0, index=None) -> S.SweepState:
     s = sources.shape[0]
     m_pad = src_idx.shape[0]
     bs = min(s, 128)
@@ -131,7 +131,7 @@ def _run_counting_batch(adj, src_idx, dst_idx, deg, sources: torch.Tensor,
     fused = None
     if fused_steps:  # resolved upstream: kernel path, push pinned
         fused = S.fused_form("counting", adj, "push", bs=bs,
-                             max_sweeps=fused_steps)
+                             max_sweeps=fused_steps, index=index)
 
     st0 = S.make_state(f0, (dist0, sigma0), n_forms=2)
     return S.sweep_loop(forms, st0, max_steps=max_steps, deg=deg,
@@ -209,8 +209,10 @@ def counting_apsp_blocks(g: Union[CSRGraph, PreparedGraph],
             bs=min(B, 128)) or 0
         if fused_steps:
             forced = PUSH       # fused blocks pin the push form
-    # the dense operand only materializes when push can dispatch
+    # the dense operand only materializes when push can dispatch, its
+    # live-word index when the fused kernel does
     adj = pg.adj if forced in (None, PUSH) else None
+    index = pg.adj_index if fused_steps else None
     for lo in range(0, len(srcs), B):
         block = srcs[lo: lo + B]
         valid = len(block)
@@ -220,7 +222,8 @@ def counting_apsp_blocks(g: Union[CSRGraph, PreparedGraph],
                                  torch.from_numpy(padded).to(pg.device),
                                  valid, cfg=config, n_real=n, n_pad=pg.n_pad,
                                  max_steps=max_steps, use_kernel=use_kernel,
-                                 forced_dir=forced, fused_steps=fused_steps)
+                                 forced_dir=forced, fused_steps=fused_steps,
+                                 index=index)
         dist, sigma = st.dist
         yield block, dist[:valid, :n], sigma[:valid, :n], st
 

@@ -33,6 +33,8 @@ import numpy as np
 import torch
 
 from ..graph.csr import CSRGraph, resolve_device
+from ..kernels import common as kernel_common
+from ..kernels import registry as kernel_registry
 from . import sweep as S
 from .frontier import UNREACHED, one_hot_frontier
 from .options import SweepOptions
@@ -88,6 +90,8 @@ class PreparedGraph:
                                                      repr=False)
     _adj_pull: Optional[torch.Tensor] = dataclasses.field(default=None,
                                                           repr=False)
+    _adj_index: Optional[kernel_common.WordIndex] = dataclasses.field(
+        default=None, repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -99,6 +103,17 @@ class PreparedGraph:
         if self._adj is None:
             self._adj = self.graph.to_dense_padded(self.n_pad)
         return self._adj
+
+    @property
+    def adj_index(self) -> kernel_common.WordIndex:
+        """Live-word index of ``adj``: per row, the 16-byte words holding
+        a non-zero byte (the fused counting kernel reads only those).
+        Built once, from the operand, by the counting kernel set's
+        builder; it is not rebuilt if ``adj`` is changed in place."""
+        if self._adj_index is None:
+            self._adj_index = kernel_registry.get("counting") \
+                .operand_index(self.adj)
+        return self._adj_index
 
     @property
     def adj_pull(self) -> torch.Tensor:

@@ -210,15 +210,17 @@ def resolve_fused_steps(semiring, form: str, *, fused_steps: int,
 
 
 def fused_form(semiring, operand, form: str, *, bs: int,
-               max_sweeps: int) -> Callable:
+               max_sweeps: int, index=None) -> Callable:
     """Close a registered fused multi-sweep kernel over its operand, with
     the ``sweep_loop(fused=...)`` contract: ``(frontier, dist, step,
-    n_run) -> (new, dist, prod, stopped)``."""
+    n_run) -> (new, dist, prod, stopped)``.  ``index``, the operand's
+    live-word index, is passed on to kernels that read one."""
     kern = kernel_registry.get(semiring).fused_forms[form]
+    kw = {} if index is None else {"index": index}
 
     def fused(f, state, step, n_run):
         return kern(f, operand, state, step, n_run, bs=bs,
-                    max_sweeps=max_sweeps)
+                    max_sweeps=max_sweeps, **kw)
 
     return fused
 
@@ -417,7 +419,8 @@ def counting_forms(adj, src_idx, dst_idx, *, n_pad: int = 0, s: int = 0,
 def tropical_forms(wdense, src_idx, dst_idx, w_edges, *, n_pad: int = 0,
                    chunk: int = 128, use_frontier: bool = True,
                    use_kernel: bool = False, bn: int = 128, bk: int = 128,
-                   eb: int = 128) -> Tuple[Optional[SweepForm], SweepForm]:
+                   eb: int = 128, windex=None
+                   ) -> Tuple[Optional[SweepForm], SweepForm]:
     """(dense, sparse) (min,+) sweep forms.
 
     dense  — the f32 min-plus analogue of the boolean push:
@@ -427,7 +430,9 @@ def tropical_forms(wdense, src_idx, dst_idx, w_edges, *, n_pad: int = 0,
              then ``None``).  Reference path: :func:`minplus_candidates`,
              ``chunk`` destination columns at a time.  Kernel path: the
              dense min-plus kernel (K7) with settled-bound tile skipping,
-             looked up in :mod:`repro_torch.kernels.registry`.
+             looked up in :mod:`repro_torch.kernels.registry`, given
+             ``windex``, the live-word index of ``wdense`` (built by
+             the kernel when ``None``).
     sparse — edge-parallel relaxation: ``cand = dist[src] + w``
              scattered with min into ``dst`` — Bellman-Ford restricted to
              the improved frontier (sound for non-negative weights).
@@ -475,7 +480,8 @@ def tropical_forms(wdense, src_idx, dst_idx, w_edges, *, n_pad: int = 0,
         if wdense is not None:
             def dense(f, d, p, step):
                 new, nd = K["dense"](masked(f, d), wdense, d, w_min,
-                                     bs=min(f.shape[0], 128), bn=bn, bk=bk)
+                                     bs=min(f.shape[0], 128), bn=bn, bk=bk,
+                                     index=windex)
                 return new, nd, p
 
         indptr = kernel_common.lane_offsets(src_idx, n_pad)

@@ -37,6 +37,8 @@ import numpy as np
 import torch
 
 from ..graph.csr import CSRGraph, resolve_device
+from ..kernels import common as kernel_common
+from ..kernels import registry as kernel_registry
 from . import sweep as S
 from .engine import _resolve_kernel, frontier_stats
 from .frontier import one_hot_frontier
@@ -108,6 +110,8 @@ class PreparedWeightedGraph:
     cost_cache: dict = dataclasses.field(default_factory=dict, repr=False)
     _wdense: Optional[torch.Tensor] = dataclasses.field(default=None,
                                                         repr=False)
+    _wdense_index: Optional[kernel_common.WordIndex] = dataclasses.field(
+        default=None, repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -126,6 +130,18 @@ class PreparedWeightedGraph:
                                self.w_edges, "amin")
             self._wdense = flat.view(n_pad, n_pad)
         return self._wdense
+
+    @property
+    def wdense_index(self) -> kernel_common.WordIndex:
+        """Live-word index of ``wdense``: per row, the 16-byte words
+        holding a finite weight (the dense min-plus kernel reads only
+        those).  Built once, from the operand, by the tropical kernel
+        set's builder; it is not rebuilt if ``wdense`` is changed in
+        place."""
+        if self._wdense_index is None:
+            self._wdense_index = kernel_registry.get("tropical") \
+                .operand_index(self.wdense)
+        return self._wdense_index
 
 
 def prepare_weighted(g: CSRGraph, weights=None, *, align: int = 128,
@@ -194,7 +210,9 @@ def _run_weighted_batch(wdense, src_idx, dst_idx, w_edges, deg,
                         sources: torch.Tensor, n_valid: int, *,
                         cfg: WeightedConfig, n_pad: int, max_sweeps: int,
                         use_kernel: bool, forced_dir: Optional[int],
-                        fused_steps: int = 0) -> S.SweepState:
+                        fused_steps: int = 0,
+                        windex: Optional[kernel_common.WordIndex] = None
+                        ) -> S.SweepState:
     s = sources.shape[0]
     m_pad = src_idx.shape[0]
     bs = min(s, 128)
@@ -209,7 +227,7 @@ def _run_weighted_batch(wdense, src_idx, dst_idx, w_edges, deg,
 
     forms = S.tropical_forms(wdense, src_idx, dst_idx, w_edges, n_pad=n_pad,
                              chunk=cfg.chunk, use_kernel=use_kernel,
-                             bn=cfg.bn, bk=cfg.bk, eb=cfg.eb)
+                             bn=cfg.bn, bk=cfg.bk, eb=cfg.eb, windex=windex)
     if forms[0] is None:
         forms = (forms[1], forms[1])  # sparse pinned; keep switch arity 2
 
@@ -258,7 +276,8 @@ def measure_weighted_costs(pw: PreparedWeightedGraph, s: int,
     forms = S.tropical_forms(pw.wdense, pw.graph.src, pw.graph.dst,
                              pw.w_edges, n_pad=n_pad, chunk=cfg.chunk,
                              use_kernel=use_kernel, bn=cfg.bn, bk=cfg.bk,
-                             eb=cfg.eb)
+                             eb=cfg.eb,
+                             windex=pw.wdense_index if use_kernel else None)
     result = S.time_sweep_forms(forms, f, dist)
     pw.cost_cache[key] = result
     return result
@@ -315,8 +334,12 @@ def weighted_apsp(g: Union[CSRGraph, PreparedWeightedGraph],
             bs=min(B, 128)) or 0
         if fused_steps:
             forced = DENSE      # fused blocks pin the dense form
-    # only materialize the O(n_pad^2) dense operand when it can dispatch
+    # only materialize the O(n_pad^2) dense operand when it can dispatch,
+    # and its live-word index when the dense kernel can (fused blocks run
+    # the multi-sweep kernel instead)
     wdense = pw.wdense if forced in (None, DENSE) else None
+    windex = pw.wdense_index if wdense is not None and use_kernel and \
+        not fused_steps else None
 
     rows = []
     sweeps = 0
@@ -333,7 +356,7 @@ def weighted_apsp(g: Union[CSRGraph, PreparedWeightedGraph],
                                  valid, cfg=config, n_pad=pw.n_pad,
                                  max_sweeps=max_sweeps,
                                  use_kernel=use_kernel, forced_dir=forced,
-                                 fused_steps=fused_steps)
+                                 fused_steps=fused_steps, windex=windex)
         rows.append(st.dist[:valid, :n])
         sweeps = max(sweeps, st.step)
         counts = [a + b for a, b in zip(counts, st.dir_counts)]

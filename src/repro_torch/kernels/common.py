@@ -14,7 +14,7 @@ budget.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -63,6 +63,108 @@ def lane_offsets(src_idx: torch.Tensor, n_pad: int) -> torch.Tensor:
     nodes = torch.arange(n_pad + 1, dtype=src_idx.dtype,
                          device=src_idx.device)
     return torch.searchsorted(src_idx, nodes, out_int32=True)
+
+
+class WordIndex(NamedTuple):
+    """Per-row compacted list of an operand's live 16-byte words.
+
+    Row k's live words are ``words[offsets[k]:offsets[k + 1]]``, in
+    ascending order; word ``w`` covers bytes ``16 w .. 16 w + 15`` of the
+    row (16 int8 columns, 4 float32 columns).  A word is live when it
+    holds a non-zero byte (counting) or a finite weight (tropical).  The
+    index is derived from the operand alone; it changes which words a
+    kernel reads, never what it computes."""
+    offsets: torch.Tensor    # (k + 1,) int32
+    words: torch.Tensor      # (offsets[-1],) int32
+    rows_live: int           # rows holding at least one live word
+
+    def work_items(self, chunk: int) -> int:
+        """Upper bound on sum_k ceil(len_k / chunk), the work items one
+        group of source rows can list (each a chunk of one row)."""
+        return self.words.numel() // chunk + self.rows_live
+
+    def work_list(self, rows: int, chunk: int) -> torch.Tensor:
+        """Room for the work items the K6 / K7 kernels list for ``rows``
+        source rows: one int4 (k, first word, group << 8 | words, row
+        mask) per chunk of ``chunk`` live words of an operand row, for
+        each group of 32 rows (one per lane)."""
+        groups = -(-rows // 32)
+        return torch.empty((max(groups * self.work_items(chunk), 1), 4),
+                           dtype=torch.int32, device=self.words.device)
+
+
+# bound on the operand bytes one chunk of the plain index build reads
+_INDEX_CHUNK_BYTES = 1 << 28
+
+
+def index_from_counts(counts: torch.Tensor):
+    """(k,) live words per row -> ((k + 1,) int32 offsets, total,
+    rows_live).  One device-to-host copy of the two totals."""
+    offsets = torch.zeros(counts.numel() + 1, dtype=torch.int64,
+                          device=counts.device)
+    offsets[1:] = torch.cumsum(counts.to(torch.int64), dim=0)
+    total, rows_live = torch.stack(
+        [offsets[-1], (counts > 0).sum()]).tolist()
+    if total >= 2 ** 31:
+        raise ValueError(f"{total} live words: the index holds int32 "
+                         f"offsets")
+    return offsets.to(torch.int32), total, rows_live
+
+
+def word_index_ref(operand: torch.Tensor, per_word: int,
+                   live) -> WordIndex:
+    """The plain build of a :class:`WordIndex`: ``live`` maps a
+    (rows, words, per_word) block of the operand to a bool block; a word
+    is live where any of its ``per_word`` elements is.  A few rows at a
+    time, so it also runs at full width on the card."""
+    k, n = operand.shape
+    if n % per_word:
+        raise ValueError(f"row length {n} is not a multiple of the "
+                         f"{per_word} elements of a 16-byte word")
+    rows = max(1, _INDEX_CHUNK_BYTES // max(n * operand.element_size(), 1))
+    counts, words = [], []
+    for r0 in range(0, k, rows):
+        blk = operand[r0: r0 + rows].reshape(-1, n // per_word, per_word)
+        hit = live(blk).any(dim=2)
+        counts.append(hit.sum(dim=1))
+        words.append(hit.nonzero()[:, 1].to(torch.int32))
+    counts = torch.cat(counts) if counts else \
+        torch.zeros(0, dtype=torch.int64, device=operand.device)
+    offsets, _, rows_live = index_from_counts(counts)
+    words = torch.cat(words) if words else \
+        torch.zeros(0, dtype=torch.int32, device=operand.device)
+    return WordIndex(offsets, words, rows_live)
+
+
+def build_word_index(lib: ctypes.CDLL, name: str,
+                     operand: torch.Tensor) -> WordIndex:
+    """Build the live-word index of a (k, n) operand on the card with C
+    entry point ``name`` of ``lib``, ``(operand, offsets, out, k, n)``:
+    a count pass (offsets null: out = words per row), the prefix sum of
+    the counts, then a fill pass (out = the word list)."""
+    k, n = operand.shape
+    dev = operand.device
+    counts = torch.empty(k, dtype=torch.int32, device=dev)
+    launch(lib, name, dev, operand.data_ptr(), None, counts.data_ptr(), k, n)
+    offsets, total, rows_live = index_from_counts(counts)
+    words = torch.empty(max(total, 1), dtype=torch.int32, device=dev)
+    launch(lib, name, dev, operand.data_ptr(), offsets.data_ptr(),
+           words.data_ptr(), k, n)
+    return WordIndex(offsets, words[:total], rows_live)
+
+
+def check_index(index: WordIndex, rows: int, device) -> None:
+    """The index a kernel wrapper was handed fits its operand's rows and
+    device."""
+    if index.offsets.shape != (rows + 1,):
+        raise ValueError(f"index: offsets of shape "
+                         f"{tuple(index.offsets.shape)}, expected "
+                         f"({rows + 1},)")
+    check_cuda(offsets=(index.offsets, torch.int32),
+               words=(index.words, torch.int32))
+    if index.offsets.device != device:
+        raise ValueError(f"index: on {index.offsets.device}, expected "
+                         f"{device}")
 
 
 def check_push_tiles(s: int, n: int, bs: int, bn: int, bk: int,

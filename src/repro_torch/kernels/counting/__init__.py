@@ -1,6 +1,7 @@
 from .kernel import (fused_counting_multisweep, fused_counting_sweep,
-                     fused_smem_bytes, reset_launches)
-from .ref import counting_sweep_ref, fused_counting_multisweep_ref
+                     fused_smem_bytes, nonzero_words, reset_launches)
+from .ref import (counting_sweep_ref, fused_counting_multisweep_ref,
+                  nonzero_words_ref)
 
 from .. import registry
 
@@ -9,11 +10,11 @@ def smem_bytes(*, form: str = "fused", n: int = 1152, **_) -> int:
     """Shared memory one block of the form's kernel holds (the
     counterpart of the JAX package's ``vmem_bytes``).
 
-    Only ``form="fused"`` is priced: one K6 block at padded node count
-    ``n`` holds its rows' packed unreached set and the active-k list on
-    chip (the operand is streamed and the (dist, sigma) state stays in
-    global memory) — the size ``resolve_fused_steps`` gates on.  The
-    per-sweep kernel K5 sizes its few-KB sigma stage at launch."""
+    Only ``form="fused"`` is priced: one K6 block holds nothing in shared
+    memory at any padded node count ``n`` (the state, the candidate sums
+    and the work list live in global memory and the operand's live words
+    are read through L2), so ``resolve_fused_steps`` admits every n_pad.
+    The per-sweep kernel K5 sizes its few-KB sigma stage at launch."""
     if form != "fused":
         raise ValueError(f"only the fused form is priced, not {form!r}")
     return fused_smem_bytes(n)
@@ -26,7 +27,9 @@ registry.register(registry.KernelSet(
     notes="f32 counting push on the CUDA cores (one product of "
           "frontier-masked sigma gives discovery and exact path counts; "
           "zero operand words cost no arithmetic); the sparse scatter-add "
-          "stays PyTorch ops; the fused multi-sweep kernel keeps the "
-          "(dist, sigma) pair in global memory and streams the operand",
+          "stays PyTorch ops; the fused multi-sweep kernel runs the whole "
+          "batch on a cooperative grid and reads only the operand words "
+          "the live-word index lists, once per sweep for all rows",
     fused_forms={"push": fused_counting_multisweep},
+    operand_index=nonzero_words,
 ))

@@ -9,6 +9,11 @@ checks.
   fused_counting_multisweep  K6 — up to ``n_run`` counting sweeps per
                              launch -> (new, (dist, sigma), prod, stopped)
 
+and the builder of the operand's live-word index that K6 reads:
+
+  nonzero_words              (k, n) int8 operand -> common.WordIndex of
+                             its 16-byte words holding a non-zero byte
+
 For tensors on the CPU each wrapper computes its plain version
 (``ref.py``).  For tensors on the card it checks dtype, shape, contiguity
 and alignment, allocates the outputs and scratch, launches its kernel on
@@ -25,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -33,13 +39,14 @@ from . import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "counting.cu"
 
-FUSED_ROWS = 1          # source rows per K6 block (<= 8), passed to the kernel
-LIST_CAP = 4096         # K6: active-k list entries (static shared memory)
+CHUNK_WORDS = 16        # K6: live operand words per work item (<= 32)
+BLOCKS_PER_SM = 2       # K6: cooperative blocks per SM (at most 2 fit)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "dawn_counting_sweep": [_P] * 9 + [_I] * 8 + [_P],
-    "dawn_fused_counting_multisweep": [_P] * 12 + [_I] * 6 + [_P],
+    "dawn_fused_counting_multisweep": [_P] * 18 + [_I] * 6 + [_P],
+    "dawn_counting_live_words": [_P] * 3 + [_I] * 2 + [_P],
 }
 
 
@@ -54,8 +61,29 @@ def _lib() -> ctypes.CDLL:
 
 
 def reset_launches() -> None:
-    for fn in (fused_counting_sweep, fused_counting_multisweep):
+    for fn in (fused_counting_sweep, fused_counting_multisweep, nonzero_words):
         fn.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the live-word index of the operand
+# --------------------------------------------------------------------------
+
+def nonzero_words(adj: torch.Tensor) -> common.WordIndex:
+    """The live-word index of a (k, n) int8 operand: per row, the 16-byte
+    words that hold a non-zero byte (``common.WordIndex``).  Built once
+    per prepared graph (``PreparedGraph.adj_index``); on the card two
+    passes of one kernel (count, then fill at the prefix-summed offsets)
+    read the operand twice."""
+    n = adj.shape[1]
+    if n % 16:
+        raise ValueError(f"n={n} is not a multiple of 16")
+    if not adj.is_cuda:
+        return ref.nonzero_words_ref(adj)
+    common.check_cuda(adj=(adj, torch.int8))
+    index = common.build_word_index(_lib(), "dawn_counting_live_words", adj)
+    nonzero_words.launches += 1
+    return index
 
 
 # --------------------------------------------------------------------------
@@ -107,27 +135,32 @@ def fused_counting_sweep(fsigma: torch.Tensor, adj: torch.Tensor,
 # K6: fused multi-sweep
 # --------------------------------------------------------------------------
 
-def fused_smem_bytes(n: int, rows: int = FUSED_ROWS) -> int:
-    """Shared memory of one K6 block of ``rows`` source rows at padded
-    node count ``n``: the rows' packed unreached set (dynamic, passed at
-    launch) plus the active-k list and its counter (static)."""
-    return 4 * rows * max(n // 32, 1) + 4 * LIST_CAP + 4
+def fused_smem_bytes(n: int) -> int:
+    """Shared memory of one K6 block at padded node count ``n``: none.
+    The (dist, sigma) state, the candidate sums, the packed unreached set
+    and the work list live in global memory (L2), so the size does not
+    grow with ``n``."""
+    del n
+    return 0
 
 
 def fused_counting_multisweep(frontier: torch.Tensor, adj: torch.Tensor,
                               state, step, n_run, *, bs: int = 128,
-                              max_sweeps: int = 1):
+                              max_sweeps: int = 1,
+                              index: Optional[common.WordIndex] = None):
     """Run up to ``n_run`` counting sweeps (``n_run <= max_sweeps``) in ONE
     kernel launch (K6).  frontier (S, n) int8, adj (n, n) int8, ``state``
     the (dist int32, sigma f32) pair, ``step`` the sweeps already executed
-    (sweep t writes distance step + 1 + t).
+    (sweep t writes distance step + 1 + t).  ``index`` is ``adj``'s
+    live-word index (:func:`nonzero_words`); without it the wrapper builds
+    it, on the card only (the plain version takes none).
 
     Returns (new int8, (dist, sigma), prod int32 scalar, stopped bool
     scalar): ``prod`` is the most productive sweeps of any row tile and
     ``stopped`` whether every tile converged, so the loop driver's
     accounting is ``executed = stopped ? prod + 1 : n_run``.  The kernel
-    runs FUSED_ROWS source rows per block whatever ``bs`` is; rows evolve
-    independently, so no result depends on the tile."""
+    runs all S rows as one tile on a cooperative grid whatever ``bs`` is;
+    rows evolve independently, so no result depends on the tile."""
     dist, sigma = state
     s, n = frontier.shape
     if adj.shape != (n, n) or dist.shape != (s, n) or sigma.shape != (s, n):
@@ -145,29 +178,33 @@ def fused_counting_multisweep(frontier: torch.Tensor, adj: torch.Tensor,
                                                  step, n_run)
     common.check_cuda(frontier=(frontier, torch.int8), adj=(adj, torch.int8),
                       dist=(dist, torch.int32), sigma=(sigma, torch.float32))
-    rows = common.tile_rows(s, FUSED_ROWS)
-    smem = fused_smem_bytes(n, rows)
-    if smem > common.SMEM_BUDGET_BYTES:
-        raise ValueError(f"n={n}: the fused kernel's shared memory "
-                         f"({smem} B) exceeds the budget")
-    tiles = s // rows
     dev = dist.device
+    if index is None:
+        index = nonzero_words(adj)
+    common.check_index(index, n, dev)
     new = torch.empty((s, n), dtype=torch.int8, device=dev)
     dist_out = torch.empty_like(dist)
     sig_out = torch.empty_like(sigma)
     fa = torch.empty((s, n), dtype=torch.int8, device=dev)
     fb = torch.empty((s, n), dtype=torch.int8, device=dev)
     cand = torch.zeros((s, n), dtype=torch.float32, device=dev)
-    prod = torch.empty(tiles, dtype=torch.int32, device=dev)
-    stop = torch.empty(tiles, dtype=torch.int32, device=dev)
+    unr = torch.empty((s, n // 32), dtype=torch.int32, device=dev)
+    items = index.work_list(s, CHUNK_WORDS)
+    counts = torch.zeros(2 * max(n_run, 1), dtype=torch.int32, device=dev)
+    bar = torch.zeros(2, dtype=torch.int32, device=dev)
+    prod = torch.empty(1, dtype=torch.int32, device=dev)
+    stop = torch.empty(1, dtype=torch.int32, device=dev)
     common.launch(_lib(), "dawn_fused_counting_multisweep", dev,
-                  frontier.data_ptr(), adj.data_ptr(), dist.data_ptr(),
-                  sigma.data_ptr(), new.data_ptr(), dist_out.data_ptr(),
-                  sig_out.data_ptr(), fa.data_ptr(), fb.data_ptr(),
-                  cand.data_ptr(), prod.data_ptr(), stop.data_ptr(), s, n,
-                  rows, 4 * rows * (n // 32), int(step), n_run)
+                  frontier.data_ptr(), adj.data_ptr(),
+                  index.offsets.data_ptr(), index.words.data_ptr(),
+                  dist.data_ptr(), sigma.data_ptr(), new.data_ptr(),
+                  dist_out.data_ptr(), sig_out.data_ptr(), fa.data_ptr(),
+                  fb.data_ptr(), cand.data_ptr(), unr.data_ptr(),
+                  items.data_ptr(), counts.data_ptr(), bar.data_ptr(),
+                  prod.data_ptr(), stop.data_ptr(), s, n, CHUNK_WORDS,
+                  BLOCKS_PER_SM, int(step), n_run)
     fused_counting_multisweep.launches += 1
-    return new, (dist_out, sig_out), prod.max(), stop.min() > 0
+    return new, (dist_out, sig_out), prod[0], stop[0] > 0
 
 
 reset_launches()

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the two counting sweep kernels.
+"""Plain PyTorch versions of the two counting sweep kernels and of the
+operand's live-word index.
 
 Each function computes exactly what its CUDA kernel in
 ``csrc/counting.cu`` computes.  The wrappers in ``kernel.py`` call them
@@ -19,7 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..common import expand_table
+from ..common import WordIndex, expand_table, word_index_ref
 
 # bound on one chunk's f32 operand copy, in elements
 _CHUNK_ELEMS = 1 << 25
@@ -32,6 +33,12 @@ def counting_product(fsigma: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
     chunk = max(1, _CHUNK_ELEMS // max(k, 1))
     return torch.cat([fsigma @ adj[:, j0: j0 + chunk].to(torch.float32)
                       for j0 in range(0, n, chunk)], dim=1)
+
+
+def nonzero_words_ref(adj: torch.Tensor) -> WordIndex:
+    """The live-word index of a (k, n) int8 operand: per row, the 16-byte
+    words (16 columns) that hold a non-zero byte, ascending."""
+    return word_index_ref(adj, 16, lambda blk: blk != 0)
 
 
 def counting_sweep_ref(fsigma: torch.Tensor, adj: torch.Tensor,

@@ -11,7 +11,7 @@ Registration happens on import of ``repro_torch.kernels``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Mapping, Tuple
+from typing import Callable, Mapping, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,7 +27,9 @@ class KernelSet:
     multi-sweep kernel, which ``core/sweep.py::resolve_fused_steps``
     gates on.  ``interpret_only`` names forms that may run only on CPU
     tensors (their plain versions): the core layer must not dispatch them
-    on the card.
+    on the card.  ``operand_index`` builds the live-word index
+    (``common.WordIndex``) of the dense operand that a form's kernel reads
+    through its ``index=`` keyword; the prepared graphs build it once.
     """
     semiring: str
     forms: Mapping[str, Callable]
@@ -36,6 +38,7 @@ class KernelSet:
     interpret_only: frozenset = frozenset()
     fused_forms: Mapping[str, Callable] = \
         dataclasses.field(default_factory=dict)
+    operand_index: Optional[Callable] = None
 
     def dispatchable(self, form: str, *, interpret: bool) -> bool:
         """May ``form`` run at this execution mode?  ``interpret`` is true

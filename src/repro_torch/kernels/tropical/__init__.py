@@ -1,8 +1,8 @@
 from .kernel import (fused_minplus_multisweep, fused_minplus_sweep,
-                     fused_smem_bytes, reset_launches,
+                     fused_smem_bytes, finite_words, reset_launches,
                      sparse_relax_sweep)
-from .ref import (fused_minplus_multisweep_ref, minplus_sweep_ref,
-                  sparse_relax_ref)
+from .ref import (fused_minplus_multisweep_ref, finite_words_ref,
+                  minplus_sweep_ref, sparse_relax_ref)
 
 from .. import registry
 
@@ -14,8 +14,7 @@ def smem_bytes(*, form: str = "fused", n: int = 1152, **_) -> int:
     Only ``form="fused"`` is priced: one K8 block holds its active-k
     list on chip (the operand is streamed and the dist state stays in
     global memory) — the size ``resolve_fused_steps`` gates on.  The
-    per-sweep kernel K7 sizes its few-KB distance stage at launch; K9
-    holds nothing in shared memory."""
+    per-sweep kernels K7 and K9 hold nothing in shared memory."""
     if form != "fused":
         raise ValueError(f"only the fused form is priced, not {form!r}")
     return fused_smem_bytes(n)
@@ -26,7 +25,8 @@ registry.register(registry.KernelSet(
     forms={"dense": fused_minplus_sweep, "sparse": sparse_relax_sweep},
     smem_bytes=smem_bytes,
     notes="dense min-plus push on the CUDA cores (settled-bound tile "
-          "skip, all-+inf operand words cost no arithmetic) + the "
+          "skip; reads only the operand words the live-word index lists, "
+          "once per 32 source rows) + the "
           "edge-parallel sparse relax over the frontier's CSR lanes "
           "(atomicMin on the float bits) + the fused multi-sweep kernel, "
           "which keeps the dist state in global memory and reads only the "
@@ -35,4 +35,5 @@ registry.register(registry.KernelSet(
     # min is order-free, so the atomic scatter gives the same bits
     interpret_only=frozenset(),
     fused_forms={"dense": fused_minplus_multisweep},
+    operand_index=finite_words,
 ))

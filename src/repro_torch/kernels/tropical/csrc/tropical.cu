@@ -1,7 +1,8 @@
 // Hand-written Hopper (sm_90a) kernels for the tropical (min,+) sweep, the
 // weighted engine's hot path.
 //
-// Three kernels, one per Pallas kernel of src/repro/kernels/tropical/kernel.py.
+// Three kernels, one per Pallas kernel of src/repro/kernels/tropical/kernel.py,
+// and the builder of the dense operand's live-word index that K7 reads.
 // The state is dist (S, n) float32 with +inf for "no path yet"; the dense
 // operand is W (k, n) float32 with +inf for a non-edge, row k = the
 // out-edges of k; the sparse operand is the CSR lane arrays.  Every entry
@@ -25,10 +26,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;                 // K7: 8 warps
-constexpr int kWarpCols = 128;                // K7: 4 columns per lane
-constexpr int kBlockCols = kThreads / 32 * kWarpCols;  // 1024
-constexpr int kUnrollK = 8;                   // K7: operand rows per batch
+constexpr int kListThreads = 256;             // K7 work list
+constexpr int kPushThreads = 256;             // K7 push
+constexpr int kEpilogueThreads = 256;         // K7 epilogue: 32 x 8
+constexpr int kIndexThreads = 256;            // live-word index: 8 rows
 constexpr int kFusedThreads = 1024;           // K8
 constexpr int kListCap = 4096;                // K8: active k per chunk
 constexpr int kBitsThreads = 256;             // K8 first pass
@@ -37,91 +38,189 @@ constexpr int32_t kInfBits = 0x7f800000;      // +inf as int32
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(kInfBits); }
 
+// torch.isfinite: false for +-inf and NaN (exponent bits all set)
+__device__ __forceinline__ bool finite_f(float x) {
+  return (__float_as_int(x) & kInfBits) != kInfBits;
+}
+
+// The live-word index of the dense operand (built once per prepared
+// graph; the plain version is ref.finite_words_ref).  One warp per operand
+// row tests 32 16-byte words (4 weights each) at a time and ballots the
+// ones holding a finite weight.  With `offsets` null it writes each row's
+// count into `out`; with the offsets (the exclusive prefix sum of those
+// counts) it writes the row's live word indices, ascending, into `out` at
+// offsets[row].  Bound: bytes — one read of the 4 n^2-byte operand per
+// pass (17.2 GB at n = 65,664).
+__global__ void __launch_bounds__(kIndexThreads) live_words_kernel(
+    const float4* __restrict__ w, int rows, int wpr,
+    const int32_t* __restrict__ offsets, int32_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (kIndexThreads / 32) + (threadIdx.x >> 5);
+  if (row >= rows) return;                               // warp-uniform
+  const float4* p = w + (size_t)row * wpr;
+  int pos = offsets ? offsets[row] : 0;
+#pragma unroll 4
+  for (int w0 = 0; w0 < wpr; w0 += 32) {
+    const int q = w0 + lane;
+    bool live = false;
+    if (q < wpr) {
+      const float4 v = __ldg(p + q);
+      live = finite_f(v.x) || finite_f(v.y) || finite_f(v.z) ||
+             finite_f(v.w);
+    }
+    const uint32_t m = __ballot_sync(0xffffffffu, live);
+    if (offsets && live) out[pos + __popc(m & ((1u << lane) - 1u))] = q;
+    pos += __popc(m);
+  }
+  if (!offsets && lane == 0) out[row] = pos;
+}
+
 // K7 fused_minplus_sweep.
 // Replaces _minplus_sweep_kernel of src/repro/kernels/tropical/kernel.py.
-// Bound: bytes of the live operand tiles.  Each (row tile, k-block) pair
-// whose f_occ is set reads bk operand rows across the block's columns in
-// float32, 4x the bytes of the int8 counting operand; the useful work (one
-// add and one min per row and finite weight) is tiny beside it.  Design:
-// K5's.  One block per (TM source rows, 1,024 columns); one warp owns one
-// 128-column output tile, so the settled-bound o_occ skip is warp-uniform;
-// the TM x bk frontier distances of a live k-block are staged in shared
-// memory and read as a broadcast; each lane loads one 16-byte word (4
-// columns) per k row, eight rows in flight, and spends no arithmetic on a
-// word whose four weights are +inf.  A skipped tile keeps its +inf
-// accumulator, so the epilogue leaves dist as it was and writes new = 0.
-template <int TM>
-__global__ void __launch_bounds__(kThreads) minplus_sweep_kernel(
+// Bound: bytes — for every operand row k where some row's frontier holds a
+// finite distance, the 32 B sectors of row k that hold a finite weight,
+// plus the state.  The operand is float32 with +inf non-edges, 17.2 GB at
+// n = 65,664, and rmat16's rows hold 25 finite 16-byte words of 16,416 on
+// average; the useful work (one add and one min per row and finite
+// weight) is tiny beside a dense read.  Design: three launches on the
+// stream.
+//   1. The work list: one warp per 32 operand rows k (a lane each) and
+//      group of 32 source rows builds each k's mask of the group's rows
+//      with a finite frontier distance (and a live f_occ k-block), and
+//      appends one item (k, a chunk of at most `chunk` of row k's live
+//      words from the live-word index, the group, the mask) per chunk.
+//   2. The push: a warp per item, one lane per source row.  The lanes load
+//      the chunk's words once (16 B each, every one holding a finite
+//      weight) and pass them round by shuffle; a lane whose row has k in
+//      its frontier skips a settled output tile (o_occ), and for each
+//      finite weight takes the candidate dist[r, k] + W[k, j] (one
+//      __fadd_rn) and atomically mins it into the candidate buffer where
+//      it beats dist[r, j] (int32 atomicMin on the float bits:
+//      order-preserving for +0.0 .. +inf).  Each listed operand word is
+//      read once per group of 32 rows, not once per row tile and column
+//      block.  The state it compares with and the candidates are
+//      node-major, (n, S): the 32 lanes of a column touch one 128-byte
+//      line, so a warp's load and its atomics are one L2 request each
+//      instead of 32.
+//   3. The epilogue: new = cand < dist, dist = cand there, through a
+//      32 x 32 shared-memory tile that turns the candidates back to the
+//      (S, n) layout.
+// A skipped k-block or output tile contributes nothing, as in the plain
+// version's expanded tables; min is exact and order-free, so the bits are
+// the plain version's in any order.
+__global__ void __launch_bounds__(kListThreads) minplus_items_kernel(
+    const float* __restrict__ fdist, const int32_t* __restrict__ woff,
+    const uint8_t* __restrict__ f_occ, int4* __restrict__ items,
+    int32_t* __restrict__ nitems, int S, int K, int bs, int bk,
+    int chunk) {
+  const int lane = threadIdx.x & 31;
+  const int kb32 = (K + 31) >> 5;
+  const int G = (S + 31) >> 5;
+  const int c = blockIdx.x * (kListThreads / 32) + (threadIdx.x >> 5);
+  if (c >= kb32 * G) return;                             // warp-uniform
+  const int g = c / kb32;
+  const int k = (c - g * kb32) * 32 + lane;
+  const int rows = min(32, S - 32 * g);
+  const int gk = K / bk;
+  uint32_t mask = 0u;
+  if (k < K) {
+    for (int rr = 0; rr < rows; ++rr) {
+      const int r = 32 * g + rr;
+      if (finite_f(__ldg(fdist + (size_t)r * K + k)) &&
+          __ldg(f_occ + (size_t)(r / bs) * gk + k / bk))
+        mask |= 1u << rr;
+    }
+  }
+  int off = 0, len = 0, nch = 0;
+  if (mask) {
+    off = __ldg(woff + k);
+    len = __ldg(woff + k + 1) - off;
+    nch = (len + chunk - 1) / chunk;
+  }
+  int incl = nch;                                        // warp scan
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  const int wsum = __shfl_sync(0xffffffffu, incl, 31);
+  if (!wsum) return;                                     // warp-uniform
+  int base = 0;
+  if (lane == 31) base = atomicAdd(nitems, wsum);
+  base = __shfl_sync(0xffffffffu, base, 31) + incl - nch;
+  for (int q = 0; q < nch; ++q)
+    items[base + q] = make_int4(k, off + q * chunk,
+                                (g << 8) | min(chunk, len - q * chunk),
+                                (int)mask);
+}
+
+__global__ void __launch_bounds__(kPushThreads) minplus_push_kernel(
     const float* __restrict__ fdist, const float* __restrict__ w,
-    const float* __restrict__ dist, int8_t* __restrict__ new_out,
-    float* __restrict__ dist_out, const uint8_t* __restrict__ f_occ,
-    const uint8_t* __restrict__ o_occ, int n, int k, int bs, int bn,
-    int bk) {
-  extern __shared__ float fs[];                          // [TM][bk]
+    const int32_t* __restrict__ wlist, const float* __restrict__ dist_t,
+    const uint8_t* __restrict__ o_occ, const int4* __restrict__ items,
+    const int32_t* __restrict__ nitems, int32_t* __restrict__ cand_t,
+    int S, int K, int n, int bs, int bn) {
   const float inf = inf_f();
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int row0 = blockIdx.x * TM;
-  const int wcol0 = blockIdx.y * kBlockCols + warp * kWarpCols;
-  const bool in_range = wcol0 < n;
-  const int ti = row0 / bs;
-  const int gj = n / bn, gk = k / bk;
-  const bool warp_live =
-      in_range && o_occ[(size_t)ti * gj + wcol0 / bn] != 0;
-  const int col = wcol0 + lane * 4;
-
-  float acc[TM][4];
+  const int lane = threadIdx.x & 31;
+  const int gwarp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int nwarps = (gridDim.x * blockDim.x) >> 5;
+  const int gj = n / bn;
+  const int ni = *nitems;
+  for (int i = gwarp; i < ni; i += nwarps) {
+    const int4 it = items[i];
+    const int k = it.x, len = it.z & 0xff, g = it.z >> 8;
+    const int r = 32 * g + lane;
+    const bool act = ((uint32_t)it.w >> lane) & 1u;
+    const float fd = act ? __ldg(fdist + (size_t)r * K + k) : inf;
+    int widx = 0;
+    float4 v = make_float4(inf, inf, inf, inf);
+    if (lane < len) {
+      widx = __ldg(wlist + it.y + lane);
+      v = __ldg(reinterpret_cast<const float4*>(w + (size_t)k * n) + widx);
+    }
+    for (int q = 0; q < len; ++q) {
+      const int j0 = 4 * __shfl_sync(0xffffffffu, widx, q);
+      const float wv[4] = {__shfl_sync(0xffffffffu, v.x, q),
+                           __shfl_sync(0xffffffffu, v.y, q),
+                           __shfl_sync(0xffffffffu, v.z, q),
+                           __shfl_sync(0xffffffffu, v.w, q)};
+      if (!act || !__ldg(o_occ + (size_t)(r / bs) * gj + j0 / bn)) continue;
 #pragma unroll
-  for (int r = 0; r < TM; ++r)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[r][b] = inf;
-
-  if (__syncthreads_or(warp_live)) {
-    for (int kb = 0; kb < gk; ++kb) {
-      if (!f_occ[(size_t)ti * gk + kb]) continue;        // block-uniform
-      const int k0 = kb * bk;
-      __syncthreads();                                   // stage consumed
-      for (int i = tid; i < TM * bk; i += kThreads) {
-        const int r = i / bk, c = i % bk;
-        fs[i] = fdist[(size_t)(row0 + r) * k + k0 + c];
-      }
-      __syncthreads();
-      if (!warp_live) continue;
-      const float* wp = w + (size_t)k0 * n + col;
-      for (int kk = 0; kk < bk; kk += kUnrollK) {
-        float4 v[kUnrollK];
-#pragma unroll
-        for (int u = 0; u < kUnrollK; ++u)
-          v[u] = __ldg(reinterpret_cast<const float4*>(
-              wp + (size_t)(kk + u) * n));
-#pragma unroll
-        for (int u = 0; u < kUnrollK; ++u) {
-          if (v[u].x == inf && v[u].y == inf && v[u].z == inf &&
-              v[u].w == inf)
-            continue;
-          const float wv[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
-#pragma unroll
-          for (int r = 0; r < TM; ++r) {
-            const float f = fs[r * bk + kk + u];
-#pragma unroll
-            for (int b = 0; b < 4; ++b)
-              acc[r][b] = fminf(acc[r][b], __fadd_rn(f, wv[b]));
-          }
-        }
+      for (int e = 0; e < 4; ++e) {
+        if (wv[e] == inf) continue;
+        const size_t idx = (size_t)(j0 + e) * S + r;
+        const float c = __fadd_rn(fd, wv[e]);
+        if (c < __ldg(dist_t + idx))
+          atomicMin(cand_t + idx, __float_as_int(c));
       }
     }
   }
-  if (!in_range) return;
-  // epilogue: new = cand < dist; dist = cand there
-#pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    const size_t idx = (size_t)(row0 + r) * n + col;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const float d = dist[idx + b];
-      const bool nw = acc[r][b] < d;
-      new_out[idx + b] = nw ? 1 : 0;
-      dist_out[idx + b] = nw ? acc[r][b] : d;
-    }
+}
+
+// K7, third pass: new = cand < dist, dist = cand there.  One block per
+// 32 x 32 tile: the (n, S) candidates are read along S into shared
+// memory and written out along n, both coalesced.
+__global__ void __launch_bounds__(kEpilogueThreads) minplus_epilogue_kernel(
+    const float* __restrict__ dist, const int32_t* __restrict__ cand_t,
+    int8_t* __restrict__ new_out, float* __restrict__ dist_out, int S,
+    int n) {
+  __shared__ int32_t tile[32][33];
+  const int j0 = blockIdx.x * 32, r0 = blockIdx.y * 32;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int i = ty; i < 32; i += kEpilogueThreads / 32) {
+    const int r = r0 + tx;
+    tile[i][tx] = r < S ? cand_t[(size_t)(j0 + i) * S + r] : kInfBits;
+  }
+  __syncthreads();
+  for (int i = ty; i < 32; i += kEpilogueThreads / 32) {
+    const int r = r0 + i;
+    if (r >= S) break;
+    const size_t idx = (size_t)r * n + j0 + tx;
+    const float a = __int_as_float(tile[tx][i]);
+    const float d = dist[idx];
+    const bool nw = a < d;
+    new_out[idx] = nw ? 1 : 0;
+    dist_out[idx] = nw ? a : d;
   }
 }
 
@@ -344,63 +443,67 @@ __global__ void __launch_bounds__(kRelaxThreads) relax_epilogue_kernel(
   }
 }
 
-template <typename K>
-cudaError_t set_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
-template <int TM>
-int launch_minplus(const void* fdist, const void* w, const void* dist,
-                   void* new_out, void* dist_out, const void* f_occ,
-                   const void* o_occ, int S, int n, int k, int bs, int bn,
-                   int bk, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * TM * bk;
-  cudaError_t err = set_smem(minplus_sweep_kernel<TM>, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(S / TM, (n + kBlockCols - 1) / kBlockCols);
-  minplus_sweep_kernel<TM><<<grid, kThreads, smem, stream>>>(
-      (const float*)fdist, (const float*)w, (const float*)dist,
-      (int8_t*)new_out, (float*)dist_out, (const uint8_t*)f_occ,
-      (const uint8_t*)o_occ, n, k, bs, bn, bk);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
-// `tm` source rows per block (16, 8, 4, 2 or 1, dividing bs); bn a
-// multiple of 128, bk a multiple of 8.  f_occ (S/bs, k/bk) and o_occ
-// (S/bs, n/bn) are one byte per tile.
-int dawn_minplus_sweep(const void* fdist, const void* w, const void* dist,
-                       void* new_out, void* dist_out, const void* f_occ,
-                       const void* o_occ, int S, int n, int k, int tm,
-                       int bs, int bn, int bk, void* stream) {
-  if (bn % kWarpCols || bk % kUnrollK || bs % tm || S % tm)
+// K7.  bn a multiple of 128, bk of 8; dist (S, n) and dist_t, its
+// (n, S) transpose; f_occ (S/bs, k/bk) and o_occ (S/bs, n/bn) one byte
+// per tile; woff / wlist: the live-word index of w; `chunk` live words
+// per work item (1..32); items: room for (S / 32 rounded up) x (the
+// index's work items at `chunk`) int4; nitems: one int32, zeroed;
+// cand_t: (n, S) int32 holding the bits of +inf; `blocks_per_sm` push
+// blocks per SM.
+int dawn_minplus_sweep(const void* fdist, const void* w, const void* woff,
+                       const void* wlist, const void* dist,
+                       const void* dist_t, void* new_out, void* dist_out,
+                       const void* f_occ, const void* o_occ, void* items,
+                       void* nitems, void* cand_t, int S, int n, int k,
+                       int bs, int bn, int bk, int chunk, int blocks_per_sm,
+                       void* stream) {
+  if (S < 1 || k < 1 || n < 128 || bn % 128 || n % bn || bk % 8 || k % bk ||
+      S % bs || chunk < 1 || chunk > 32 || blocks_per_sm < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (tm) {
-    case 16:
-      return launch_minplus<16>(fdist, w, dist, new_out, dist_out, f_occ,
-                                o_occ, S, n, k, bs, bn, bk, st);
-    case 8:
-      return launch_minplus<8>(fdist, w, dist, new_out, dist_out, f_occ,
-                               o_occ, S, n, k, bs, bn, bk, st);
-    case 4:
-      return launch_minplus<4>(fdist, w, dist, new_out, dist_out, f_occ,
-                               o_occ, S, n, k, bs, bn, bk, st);
-    case 2:
-      return launch_minplus<2>(fdist, w, dist, new_out, dist_out, f_occ,
-                               o_occ, S, n, k, bs, bn, bk, st);
-    case 1:
-      return launch_minplus<1>(fdist, w, dist, new_out, dist_out, f_occ,
-                               o_occ, S, n, k, bs, bn, bk, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int warps = ((S + 31) / 32) * ((k + 31) / 32);
+  const int per_block = kListThreads / 32;
+  minplus_items_kernel<<<(warps + per_block - 1) / per_block, kListThreads,
+                         0, st>>>(
+      (const float*)fdist, (const int32_t*)woff, (const uint8_t*)f_occ,
+      (int4*)items, (int32_t*)nitems, S, k, bs, bk, chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  minplus_push_kernel<<<sms * blocks_per_sm, kPushThreads, 0, st>>>(
+      (const float*)fdist, (const float*)w, (const int32_t*)wlist,
+      (const float*)dist_t, (const uint8_t*)o_occ, (const int4*)items,
+      (const int32_t*)nitems, (int32_t*)cand_t, S, k, n, bs, bn);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  minplus_epilogue_kernel<<<dim3(n / 32, (S + 31) / 32), kEpilogueThreads,
+                            0, st>>>(
+      (const float*)dist, (const int32_t*)cand_t, (int8_t*)new_out,
+      (float*)dist_out, S, n);
+  return (int)cudaGetLastError();
+}
+
+// The live-word index of a (rows, n) float32 operand.  Count pass
+// (offsets null): out (rows,) int32 live words per row.  Fill pass:
+// offsets (rows + 1,) int32, out the (offsets[rows],) int32 word list.
+int dawn_tropical_live_words(const void* w, const void* offsets, void* out,
+                             int rows, int n, void* stream) {
+  if (rows < 0 || n < 4 || n % 4) return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  const int per_block = kIndexThreads / 32;
+  live_words_kernel<<<(rows + per_block - 1) / per_block, kIndexThreads, 0,
+                      (cudaStream_t)stream>>>(
+      (const float4*)w, rows, n / 4, (const int32_t*)offsets,
+      (int32_t*)out);
+  return (int)cudaGetLastError();
 }
 
 // `rows` source rows per block (1..8, dividing S); n a multiple of 128.

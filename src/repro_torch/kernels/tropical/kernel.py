@@ -11,6 +11,11 @@ divisibility checks.
   sparse_relax_sweep        K9 — edge-parallel relax over the CSR lanes
                             of the frontier -> (new, dist)
 
+and the builder of the dense operand's live-word index that K7 reads:
+
+  finite_words              (k, n) f32 operand -> common.WordIndex of its
+                            16-byte words holding a finite weight
+
 For tensors on the CPU each wrapper computes its plain version
 (``ref.py``).  For tensors on the card it checks dtype, shape, contiguity
 and alignment, allocates the outputs and scratch, launches its kernel on
@@ -38,10 +43,13 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "tropical.cu"
 
 FUSED_ROWS = 1          # source rows per K8 block (<= 8), passed to the kernel
 LIST_CAP = 4096         # K8: active-k list entries (static shared memory)
+CHUNK_WORDS = 16        # K7: live operand words per work item (<= 32)
+PUSH_BLOCKS_PER_SM = 8  # K7: push blocks of 256 threads per SM
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "dawn_minplus_sweep": [_P] * 7 + [_I] * 7 + [_P],
+    "dawn_minplus_sweep": [_P] * 13 + [_I] * 8 + [_P],
+    "dawn_tropical_live_words": [_P] * 3 + [_I] * 2 + [_P],
     "dawn_fused_minplus_multisweep": [_P] * 11 + [_I] * 4 + [_P],
     "dawn_sparse_relax": [_P] * 8 + [_I] * 2 + [_P],
 }
@@ -59,8 +67,30 @@ def _lib() -> ctypes.CDLL:
 
 def reset_launches() -> None:
     for fn in (fused_minplus_sweep, fused_minplus_multisweep,
-               sparse_relax_sweep):
+               sparse_relax_sweep, finite_words):
         fn.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the live-word index of the dense operand
+# --------------------------------------------------------------------------
+
+def finite_words(wdense: torch.Tensor) -> common.WordIndex:
+    """The live-word index of a (k, n) float32 operand: per row, the
+    16-byte words that hold a finite weight (``common.WordIndex``).  Built
+    once per prepared graph (``PreparedWeightedGraph.wdense_index``); on
+    the card two passes of one kernel (count, then fill at the
+    prefix-summed offsets) read the operand twice."""
+    n = wdense.shape[1]
+    if n % 4:
+        raise ValueError(f"n={n} is not a multiple of 4")
+    if not wdense.is_cuda:
+        return ref.finite_words_ref(wdense)
+    common.check_cuda(wdense=(wdense, torch.float32))
+    index = common.build_word_index(_lib(), "dawn_tropical_live_words",
+                                    wdense)
+    finite_words.launches += 1
+    return index
 
 
 # --------------------------------------------------------------------------
@@ -69,13 +99,17 @@ def reset_launches() -> None:
 
 def fused_minplus_sweep(fdist: torch.Tensor, wdense: torch.Tensor,
                         dist: torch.Tensor, w_min, *, bs: int = 128,
-                        bn: int = 128, bk: int = 128):
+                        bn: int = 128, bk: int = 128,
+                        index: Optional[common.WordIndex] = None):
     """One fused (min,+) sweep (K7).  fdist (S, k) f32 — the
     frontier-masked distances (``where(frontier, dist, +inf)``), wdense
     (k, n) f32 with +inf non-edges, dist (S, n) f32; ``w_min`` the
     minimum edge weight (a 0-d tensor or a number, +inf for no edges).
     S % bs == 0, n % bn == 0, k % bk == 0; on the card also
-    bn % 128 == 0 and bk % 8 == 0.  Returns (new int8, dist f32).
+    bn % 128 == 0 and bk % 8 == 0.  ``index`` is ``wdense``'s live-word
+    index (:func:`finite_words`); without it the wrapper builds it, on the
+    card only (the plain version takes none).  Returns (new int8, dist
+    f32).
 
     k-blocks with no finite fdist (f_occ) and output tiles whose every
     distance already sits at or below ``min_k fdist[s, k] + w_min``
@@ -101,14 +135,26 @@ def fused_minplus_sweep(fdist: torch.Tensor, wdense: torch.Tensor,
     if bn % 128 or bk % 8:
         raise ValueError(f"the kernel needs bn % 128 == 0 and bk % 8 == 0, "
                          f"got bn={bn}, bk={bk}")
-    tm = common.tile_rows(bs, 16)
-    new = torch.empty((s, n), dtype=torch.int8, device=dist.device)
+    dev = dist.device
+    if index is None:
+        index = finite_words(wdense)
+    common.check_index(index, k, dev)
+    new = torch.empty((s, n), dtype=torch.int8, device=dev)
     dist_out = torch.empty_like(dist)
-    common.launch(_lib(), "dawn_minplus_sweep", dist.device,
-                  fdist.data_ptr(), wdense.data_ptr(), dist.data_ptr(),
+    items = index.work_list(s, CHUNK_WORDS)
+    nitems = torch.zeros(1, dtype=torch.int32, device=dev)
+    # the push compares and scatters node-major: (n, S)
+    dist_t = dist.t().contiguous()
+    cand_t = torch.full((n, s), float("inf"), dtype=torch.float32,
+                        device=dev)
+    common.launch(_lib(), "dawn_minplus_sweep", dev, fdist.data_ptr(),
+                  wdense.data_ptr(), index.offsets.data_ptr(),
+                  index.words.data_ptr(), dist.data_ptr(), dist_t.data_ptr(),
                   new.data_ptr(), dist_out.data_ptr(),
                   f_occ.contiguous().data_ptr(),
-                  o_occ.contiguous().data_ptr(), s, n, k, tm, bs, bn, bk)
+                  o_occ.contiguous().data_ptr(), items.data_ptr(),
+                  nitems.data_ptr(), cand_t.data_ptr(), s, n, k, bs, bn, bk,
+                  CHUNK_WORDS, PUSH_BLOCKS_PER_SM)
     fused_minplus_sweep.launches += 1
     return new, dist_out
 

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the three tropical (min,+) sweep kernels.
+"""Plain PyTorch versions of the three tropical (min,+) sweep kernels and
+of the dense operand's live-word index.
 
 Each function computes exactly what its CUDA kernel in
 ``csrc/tropical.cu`` computes.  The wrappers in ``kernel.py`` call them
@@ -19,7 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..common import expand_table
+from ..common import WordIndex, expand_table, word_index_ref
 
 # bound on one chunk's (S, kc, n) broadcast, in elements
 _CHUNK_ELEMS = 1 << 26
@@ -42,6 +43,12 @@ def minplus_product(fdist: torch.Tensor, wdense: torch.Tensor
         part = (fdist[:, ks, None] + wdense[ks][None]).amin(dim=1)
         cand = torch.minimum(cand, part)
     return cand
+
+
+def finite_words_ref(wdense: torch.Tensor) -> WordIndex:
+    """The live-word index of a (k, n) float32 operand: per row, the
+    16-byte words (4 columns) that hold a finite weight, ascending."""
+    return word_index_ref(wdense, 4, torch.isfinite)
 
 
 def minplus_sweep_ref(fdist: torch.Tensor, wdense: torch.Tensor,

@@ -136,6 +136,93 @@ def test_counting_multisweep_matches_pallas(n_run):
         assert bool(got[3]) and 0 < int(got[2]) < n_run
 
 
+# --------------------------------------------------------------------------
+# the live-word index K6 reads
+# --------------------------------------------------------------------------
+
+def _index_families():
+    """The adversarial families, plus a hub row beside isolated nodes: node
+    0 points at every fourth node and nothing else has an edge."""
+    fams = dict(FAMILIES)
+    n = 300
+    spokes = np.arange(4, n, 4, dtype=np.int32)
+    fams["hub_isolated"] = (np.zeros(spokes.size, np.int32), spokes, n)
+    return fams
+
+
+INDEX_FAMILIES = _index_families()
+
+
+def lane_words(jg, per_word, n_pad):
+    """Per operand row, the 16-byte words that hold one of its edges,
+    straight from the JAX graph's CSR lanes: (offsets, words, rows)."""
+    src = np.asarray(jg.src)[: jg.n_edges].astype(np.int64)
+    dst = np.asarray(jg.dst)[: jg.n_edges].astype(np.int64)
+    per_row = n_pad // per_word
+    rows, words = np.divmod(np.unique(src * per_row + dst // per_word),
+                            per_row)
+    counts = np.bincount(rows, minlength=n_pad)
+    return np.r_[0, np.cumsum(counts)], words, int((counts > 0).sum())
+
+
+@pytest.mark.parametrize("family", sorted(INDEX_FAMILIES))
+def test_index_marks_exactly_the_nonzero_words(family):
+    """The plain index build marks exactly the 16-byte words of each
+    operand row that hold a non-zero byte (one of the row's edges), in
+    ascending order; isolated rows list none, a hub row lists every word
+    it touches.  ``work_items`` bounds the chunks of every row."""
+    src, dst, n = INDEX_FAMILIES[family]
+    jg = JCSR.from_edges(src, dst, n)
+    n_pad = jg.n_padded()
+    adj = torch.from_numpy(np.array(jg.to_dense_padded(n_pad)))
+    idx = tkern.nonzero_words(adj)
+    offsets, words, rows_live = lane_words(jg, 16, n_pad)
+    np.testing.assert_array_equal(idx.offsets.numpy(), offsets)
+    np.testing.assert_array_equal(idx.words.numpy(), words)
+    assert idx.offsets.dtype == idx.words.dtype == torch.int32
+    assert idx.rows_live == rows_live
+    assert tkern.nonzero_words.launches == 0               # CPU: no launch
+    lens = np.diff(offsets)
+    for chunk in (1, 3, 32):
+        assert int(((lens + chunk - 1) // chunk).sum()) <= \
+            idx.work_items(chunk)
+
+
+def test_fused_multisweep_same_with_and_without_index():
+    """On the CPU the K6 wrapper takes its plain version, which reads no
+    index: passing the live-word index changes nothing, and neither does
+    the engine's fused path, which hands the prepared graph's index on."""
+    jg = jgen.watts_strogatz(120, 4, 0.1, seed=7)
+    n = jg.n_padded()
+    adj = torch.from_numpy(np.array(jg.to_dense_padded(n)))
+    s = 16
+    f = torch.zeros((s, n), dtype=torch.int8)
+    f[torch.arange(s), torch.arange(s) * 7] = 1
+    d = torch.where(f != 0, 0, -1).to(torch.int32)
+    d[:, jg.n_nodes:] = 0
+    sg = (f != 0).to(torch.float32)
+    for n_run in (0, 2, 40):
+        kw = dict(bs=8, max_sweeps=max(n_run, 1))
+        want = tkern.fused_counting_multisweep(f, adj, (d, sg), 0, n_run,
+                                               **kw)
+        got = tkern.fused_counting_multisweep(
+            f, adj, (d, sg), 0, n_run, index=tkern.nonzero_words(adj), **kw)
+        _same(tuple(x.numpy() for x in (want[0],) + want[1]),
+              (got[0],) + got[1])
+        assert int(want[2]) == int(got[2])
+        assert bool(want[3]) == bool(got[3])
+    pg = tcent.prepare_graph(carry(jg), device="cpu")
+    res = tcent.counting_apsp(pg, np.arange(0, 120, 7), config=tcent
+                              .CentralityConfig(use_kernel=True,
+                                                fused_steps=-1,
+                                                source_batch=8))
+    assert pg._adj_index is not None
+    np.testing.assert_array_equal(pg.adj_index.words.numpy(),
+                                  lane_words(jg, 16, n)[1])
+    np.testing.assert_array_equal(res.dist.numpy(),
+                                  bfs_dists(jg, np.arange(0, 120, 7)))
+
+
 def test_wrappers_validate_shapes_and_tiles():
     z8 = torch.zeros((8, 128), dtype=torch.int8)
     zf = torch.zeros((8, 128), dtype=torch.float32)
@@ -156,16 +243,21 @@ def test_counting_registry_and_fused_gate():
     ks = registry.get("counting")
     assert ks.forms["push"] is tkern.fused_counting_sweep
     assert ks.fused_forms["push"] is tkern.fused_counting_multisweep
-    # one K6 block holds its rows' packed unreached set and the active-k
-    # list: the gate admits the full-width n_pad the JAX VMEM gate refuses
-    assert ks.smem_bytes(form="fused", n=65_664) == \
-        4 * tkern.kernel.FUSED_ROWS * 2_052 + 4 * 4096 + 4
+    # one K6 block holds nothing in shared memory (its state, candidate
+    # sums and work list live in global memory): the gate admits the
+    # full-width n_pad the JAX VMEM gate refuses, at any budget
+    assert ks.smem_bytes(form="fused", n=65_664) == 0
+    assert ks.smem_bytes(form="fused", n=1 << 22) == 0
+    assert ks.operand_index is tkern.nonzero_words
     assert tsweep.resolve_fused_steps(
         "counting", "push", fused_steps=-1, max_steps=9, use_kernel=True,
         n_pad=65_664, bs=128) == 9
     assert tsweep.resolve_fused_steps(
         "counting", "push", fused_steps=4, max_steps=9, use_kernel=True,
-        n_pad=65_664, bs=128, budget=1024) is None
+        n_pad=65_664, bs=128, budget=0) == 4
+    assert tsweep.resolve_fused_steps(
+        "counting", "push", fused_steps=4, max_steps=9, use_kernel=False,
+        n_pad=65_664, bs=128) is None
     with pytest.raises(ValueError, match="only the fused form"):
         ks.smem_bytes(form="push", n=256)
 

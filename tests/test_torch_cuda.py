@@ -14,6 +14,7 @@ from repro_torch.core.engine import EngineConfig, apsp_engine, prepare_graph
 from repro_torch.core.weighted import (WeightedConfig, prepare_weighted,
                                        weighted_apsp)
 from repro_torch.graph import generators as gen
+from repro_torch.graph.csr import CSRGraph
 from repro_torch.kernels import bovm, common, counting, tropical
 from repro_torch.kernels.bovm import ref as R
 
@@ -171,19 +172,23 @@ def _counting_start(g, s, n, seed):
     return f, d, (f != 0).to(torch.float32)
 
 
-@pytest.mark.parametrize("s,nodes,bs,rows", [(128, 500, 128, 1),
-                                             (16, 300, 16, 8),
-                                             (40, 900, 8, 2)])
+@pytest.mark.parametrize("s,nodes,bs,chunk", [(128, 500, 128, 32),
+                                              (16, 300, 16, 8),
+                                              (40, 900, 8, 1),
+                                              (256, 700, 128, 5)])
 def test_counting_kernels_match_plain(cuda, monkeypatch, s, nodes, bs,
-                                      rows):
+                                      chunk):
     """K5 sweep by sweep from the sources, then K6 from the mid-run state
-    (n_run 0, 1, 3 and to the fixpoint, ``rows`` source rows per block):
-    bit-identical to the plain versions on the CPU."""
-    monkeypatch.setattr(counting.kernel, "FUSED_ROWS", rows)
+    (n_run 0, 1, 3 and to a fixpoint it stops early at, ``chunk`` live
+    words per work item, with and without a prepared live-word index):
+    bit-identical to the plain versions on the CPU.  S = 40 leaves 24
+    lanes of the last row group past S; n_pad 384, 512, 768, 1,024."""
+    monkeypatch.setattr(counting.kernel, "CHUNK_WORDS", chunk)
     g = gen.erdos_renyi(nodes, 5.0, seed=nodes, directed=False,
                         device="cpu")
     n = g.n_padded()
     adj = g.to_dense_padded(n)
+    index = counting.nonzero_words(adj.to(cuda))
     f, d, sg = _counting_start(g, s, n, nodes)
     before = counting.fused_counting_sweep.launches
     for step in (1, 2):
@@ -196,17 +201,52 @@ def test_counting_kernels_match_plain(cuda, monkeypatch, s, nodes, bs,
         _same(want, got)
         f, d, sg = want
     assert counting.fused_counting_sweep.launches == before + 2
+    before = counting.fused_counting_multisweep.launches
     for n_run in (0, 1, 3, 50):
         kw = dict(bs=bs, max_sweeps=max(n_run, 1))
         want = counting.fused_counting_multisweep(f, adj, (d, sg), 2, n_run,
                                                   **kw)
         got = counting.fused_counting_multisweep(
             f.to(cuda), adj.to(cuda), (d.to(cuda), sg.to(cuda)), 2, n_run,
-            **kw)
+            index=index if n_run % 2 else None, **kw)
         torch.cuda.synchronize()
         _same((want[0],) + want[1], (got[0],) + got[1])
         assert int(want[2]) == int(got[2])
         assert bool(want[3]) == bool(got[3])
+    assert bool(got[3]) and int(got[2]) < 50        # stopped early
+    assert counting.fused_counting_multisweep.launches == before + 4
+
+
+def _hub_isolated(n=1000):
+    """Node 0 points at every fourth node; the rest have no out-edge and
+    most no edge at all."""
+    spokes = np.arange(4, n, 4)
+    return CSRGraph.from_edges(np.zeros(spokes.size, np.int64), spokes, n,
+                               device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["er", "hub", "grid"])
+def test_live_word_index_kernels_match_plain(cuda, kind):
+    """Both index builders (int8 non-zero words, f32 finite words) on the
+    card against their plain versions: offsets, words and live rows."""
+    g = {"er": lambda: gen.erdos_renyi(900, 5.0, seed=9, device="cpu"),
+         "hub": _hub_isolated,
+         "grid": lambda: gen.grid2d(20, 20, device="cpu")}[kind]()
+    n = g.n_padded()
+    w = (np.random.default_rng(n).integers(4, 33, g.m_pad) / 8) \
+        .astype(np.float32)
+    builders = ((counting.nonzero_words, g.to_dense_padded(n)),
+                (tropical.finite_words,
+                 prepare_weighted(g, w, device="cpu").wdense))
+    for build, op in builders:
+        want = build(op)
+        before = build.launches
+        got = build(op.to(cuda))
+        torch.cuda.synchronize()
+        assert build.launches == before + 1
+        assert torch.equal(want.offsets, got.offsets.cpu())
+        assert torch.equal(want.words, got.words.cpu())
+        assert want.rows_live == got.rows_live
 
 
 @pytest.mark.parametrize("opts", [dict(), dict(mode="push"),
@@ -244,24 +284,31 @@ def _tropical_start(nodes, s, seed):
     return pw, f, d
 
 
-@pytest.mark.parametrize("s,nodes,bs", [(128, 500, 128), (16, 300, 16),
-                                        (40, 900, 8)])
-def test_tropical_kernels_match_plain(cuda, monkeypatch, s, nodes, bs):
-    """K7 and K9 sweep by sweep, then K8 from the mid-run state (n_run 0,
-    1, 3 and to the fixpoint, with 1 and 4 source rows per block):
-    bit-identical to the plain versions on the CPU."""
+@pytest.mark.parametrize("s,nodes,bs,chunk", [(128, 500, 128, 32),
+                                              (16, 300, 16, 8),
+                                              (40, 900, 8, 3)])
+def test_tropical_kernels_match_plain(cuda, monkeypatch, s, nodes, bs,
+                                      chunk):
+    """K7 (``chunk`` live words per work item; with a prepared live-word
+    index, then building its own) and K9 sweep by sweep, then K8 from the
+    mid-run state (n_run 0, 1, 3 and to the fixpoint, with 1 and 4 source
+    rows per block): bit-identical to the plain versions on the CPU.
+    S = 40 leaves 24 lanes of K7's last row group past S; n_pad 384."""
+    monkeypatch.setattr(tropical.kernel, "CHUNK_WORDS", chunk)
     pw, f, d = _tropical_start(nodes, s, nodes)
     g, w, wd = pw.graph, pw.w_edges, pw.wdense
+    index = tropical.finite_words(wd.to(cuda))
     indptr = common.lane_offsets(g.src, pw.n_pad)
     inf = torch.tensor(float("inf"))
     before = (tropical.fused_minplus_sweep.launches,
               tropical.sparse_relax_sweep.launches)
-    for _ in range(2):
+    for sweep in range(2):
         fd = torch.where(f != 0, d, inf)
         want = tropical.fused_minplus_sweep(fd, wd, d, w.min(), bs=bs)
         got = tropical.fused_minplus_sweep(fd.to(cuda), wd.to(cuda),
                                            d.to(cuda), w.min().to(cuda),
-                                           bs=bs)
+                                           bs=bs,
+                                           index=None if sweep else index)
         torch.cuda.synchronize()
         _same(want, got)
         got = tropical.sparse_relax_sweep(
@@ -290,6 +337,31 @@ def test_tropical_kernels_match_plain(cuda, monkeypatch, s, nodes, bs):
             _same(want[:2], got[:2])
             assert int(want[2]) == int(got[2])
             assert bool(want[3]) == bool(got[3])
+
+
+def test_minplus_kernel_on_hub_and_isolated_rows(cuda):
+    """K7 where one operand row (the hub) holds most live words and most
+    rows hold none, from every source at once: bit-identical to the plain
+    version, with the settled-bound skip live."""
+    g = _hub_isolated()
+    w = (np.random.default_rng(3).integers(4, 33, g.m_pad) / 8) \
+        .astype(np.float32)
+    pw = prepare_weighted(g, w, device="cpu")
+    n, s = pw.n_pad, 64
+    d = torch.full((s, n), float("inf"))
+    d[:, 0] = torch.arange(s, dtype=torch.float32) / 4
+    d[:32, 128:256] = 0.25                   # one settled output tile
+    fd = torch.where(torch.arange(n)[None, :] < 2, d,
+                     torch.tensor(float("inf")))
+    want = tropical.fused_minplus_sweep(fd, pw.wdense, d, pw.w_edges.min(),
+                                        bs=32)
+    got = tropical.fused_minplus_sweep(
+        fd.to(cuda), pw.wdense.to(cuda), d.to(cuda),
+        pw.w_edges.min().to(cuda), bs=32,
+        index=tropical.finite_words(pw.wdense.to(cuda)))
+    torch.cuda.synchronize()
+    _same(want, got)
+    assert want[0].any()
 
 
 @pytest.mark.parametrize("opts", [dict(), dict(mode="dense"),

@@ -195,6 +195,75 @@ def test_fused_minplus_multisweep_matches_pallas(n_run):
         assert bool(got[3]) and 0 < int(got[2]) < n_run
 
 
+# --------------------------------------------------------------------------
+# the live-word index K7 reads
+# --------------------------------------------------------------------------
+
+def _index_families():
+    """The adversarial families, plus a hub row beside isolated nodes: node
+    0 points at every fourth node and nothing else has an edge."""
+    fams = dict(FAMILIES)
+    n = 300
+    spokes = np.arange(4, n, 4, dtype=np.int32)
+    fams["hub_isolated"] = (np.zeros(spokes.size, np.int32), spokes, n)
+    return fams
+
+
+INDEX_FAMILIES = _index_families()
+
+
+@pytest.mark.parametrize("family", sorted(INDEX_FAMILIES))
+def test_index_marks_exactly_the_finite_words(family):
+    """The plain index build marks exactly the 16-byte words (4 columns)
+    of each weight-matrix row that hold a finite weight (one of the row's
+    edges), in ascending order; isolated rows list none.  ``work_items``
+    bounds the chunks of every row."""
+    src, dst, n = INDEX_FAMILIES[family]
+    jg = JCSR.from_edges(src, dst, n)
+    n_pad = jg.n_padded()
+    lsrc = np.asarray(jg.src)[: jg.n_edges].astype(np.int64)
+    ldst = np.asarray(jg.dst)[: jg.n_edges].astype(np.int64)
+    w = np.full((n_pad, n_pad), np.inf, np.float32)
+    w[lsrc, ldst] = np.random.default_rng(n).uniform(0.0, 4.0, lsrc.size)
+    idx = tkern.finite_words(_t(w))
+    rows, words = np.divmod(np.unique(lsrc * (n_pad // 4) + ldst // 4),
+                            n_pad // 4)
+    counts = np.bincount(rows, minlength=n_pad)
+    np.testing.assert_array_equal(idx.offsets.numpy(),
+                                  np.r_[0, np.cumsum(counts)])
+    np.testing.assert_array_equal(idx.words.numpy(), words)
+    assert idx.offsets.dtype == idx.words.dtype == torch.int32
+    assert idx.rows_live == int((counts > 0).sum())
+    assert tkern.finite_words.launches == 0               # CPU: no launch
+    for chunk in (1, 3, 32):
+        assert int(((counts + chunk - 1) // chunk).sum()) <= \
+            idx.work_items(chunk)
+
+
+def test_minplus_sweep_same_with_and_without_index():
+    """On the CPU the K7 wrapper takes its plain version, which reads no
+    index: passing the live-word index changes nothing, and neither does
+    the dense kernel form, which hands it on."""
+    rng = np.random.default_rng(11)
+    f, fdist, w, dist, w_min = _tropical_state(rng, 16, 256)
+    wt = _t(w)
+    idx = tkern.finite_words(wt)
+    want = tkern.fused_minplus_sweep(_t(fdist), wt, _t(dist), w_min, bs=8)
+    got = tkern.fused_minplus_sweep(_t(fdist), wt, _t(dist), w_min, bs=8,
+                                    index=idx)
+    _same(tuple(x.numpy() for x in want), got)
+    src = torch.zeros(128, dtype=torch.int32)
+    wl = torch.full((128,), float(w_min))           # the same w_min
+    dense, _ = tsweep.tropical_forms(wt, src, src, wl, n_pad=256,
+                                     use_kernel=True, windex=idx)
+    p = torch.zeros(1, dtype=torch.int32)
+    got = dense(_t(f), _t(dist), p, 1)
+    ref = tkern.fused_minplus_sweep(_t(fdist), wt, _t(dist), w_min,
+                                    bs=16)
+    assert ref[0].any()
+    _same(tuple(x.numpy() for x in ref), got[:2])
+
+
 def test_wrappers_validate_shapes_and_tiles():
     zf = torch.zeros((8, 128))
     z8 = torch.zeros((8, 128), dtype=torch.int8)
