@@ -17,11 +17,16 @@ against scipy's Dijkstra and a float32 Bellman-Ford replay on the host,
 and holds every kernel bit-identical to its plain PyTorch version at
 full width: on rmat16 after 2 sweeps, and K1-K3 and K9 also on grid256's
 thin frontier after 200 sweeps, where most of their launches run; the
-two live-word index builders K6 and K7 read (``nonzero_words``,
-``finite_words``) are timed and held to their plain versions on the
-rmat16 operands (phase ``index``).  Each kernel line carries its state
-and its main-path launches per graph (``tools/kernel_table.py`` ranks
-the kernels from them).  One JSON line per phase; the last line is
+three live-word index builders that K1 / K2, K6 and K7 read
+(``packed_live_words`` on both graphs' packed operands, ``nonzero_words``,
+``finite_words`` on the rmat16 operands) are timed and held to their
+plain versions (phase ``index``).  K1 and K2 also carry ``device_ms``,
+one call replayed from a CUDA graph: the card's time alone, where the
+host takes longer to issue a call than the card to run it.  Each kernel
+line carries its state and its main-path launches per graph
+(``tools/kernel_table.py`` ranks the kernels from them).  The packed
+bound is printed beside the earlier rule's (phase ``bound_recount``).
+One JSON line per phase; the last line is
 ``{"ok": true, "device": {...}}``.
 Any failure raises and the script exits non-zero.  Without CUDA, or
 outside a checkout of the repository, it exits non-zero at once.
@@ -87,7 +92,8 @@ REPLACES = {
     "fused_minplus_sweep": "src/repro/kernels/tropical/kernel.py:128",
     "fused_minplus_multisweep": "src/repro/kernels/tropical/kernel.py:210",
     "sparse_relax_sweep": "src/repro/kernels/tropical/kernel.py:302",
-    # the live-word index builders serve the ports of K6 and K7
+    # the live-word index builders serve the ports of K1 / K2, K6 and K7
+    "packed_live_words": "src/repro/kernels/bovm/kernel.py:184",
     "nonzero_words": "src/repro/kernels/counting/kernel.py:184",
     "finite_words": "src/repro/kernels/tropical/kernel.py:128",
 }
@@ -129,6 +135,21 @@ def cuda_ms(torch, fn, reps: int, warm: bool = True) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, reps: int) -> float:
+    """Device time of ``fn``'s launches alone (CUDA events around replays
+    of one call captured in a CUDA graph): where the host takes longer to
+    issue a call than the card to run it, ``cuda_ms`` times the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(torch, graph.replay, reps)
 
 
 def scipy_dist(g, sources) -> np.ndarray:
@@ -244,7 +265,8 @@ def main() -> int:
     # the plain versions and the library yardstick take full float32
     torch.backends.cuda.matmul.allow_tf32 = False
     kernels = (bovm.packed_push_sweep, bovm.packed_pull_sweep,
-               bovm.fused_boolean_multisweep, bovm.fused_sweep)
+               bovm.fused_boolean_multisweep, bovm.fused_sweep,
+               bovm.packed_live_words)
     ckernels = (counting.fused_counting_sweep,
                 counting.fused_counting_multisweep, counting.nonzero_words)
     wkernels = (tropical.fused_minplus_sweep,
@@ -307,6 +329,8 @@ def main() -> int:
         for run, opts in runs.items():
             h = repro_torch.prepare(g, **opts)
             h.prepared().adj_pull                # operand build = set-up
+            if run != "fused":                   # K1 / K2's index, too
+                h.prepared().adj_pull_index
             before = [k.launches for k in kernels]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -345,7 +369,7 @@ def main() -> int:
                                  f"the per-sweep push")
     launches = {k.__name__: k.launches for k in kernels}
     emit(phase="main_path", launches=launches)
-    for k in kernels[:3]:
+    for k in kernels[:3] + kernels[4:]:
         if launches[k.__name__] < 1:
             raise AssertionError(f"{k.__name__} never launched on the "
                                  f"main path")
@@ -572,28 +596,47 @@ def main() -> int:
     sector = 8                                # words per 32 B DRAM sector
 
     def packed_need(fp_, d_, new_, nz_=nz_at):
-        """Operand bytes and word ops one packed sweep needs on this state.
-        A pair (s, j) still unreached that misses must read every operand
-        word of column j where frontier row s is active; one that hits
-        needs a single word.  Bytes, in 32 B sectors: per column, the
-        union of its missing rows' active sectors, or one sector if all
-        its pending rows hit.  Ops (an AND and a test per word): one for
-        a hitting pair; for a missing pair every word where both frontier
-        row s and in-neighbour row j are non-zero."""
+        """Operand bytes and word ops one packed sweep needs on this state,
+        under the live-word rule.  A pair (s, j) still unreached that
+        misses must see every live (non-zero) operand word of column j
+        where frontier row s is active; one that hits needs a single
+        word.  Bytes, per column with an unreached target: where some
+        pending row misses, the cheaper of the two ways to read the live
+        words a missing row's frontier selects, the column's index
+        entries (8 B per live word: position and value) or the 32 B
+        sectors of its operand row that hold them; where every pending
+        row hits, one sector.  Ops (an AND and a test per
+        word): one for a hitting pair; for a missing pair every word where
+        both frontier row s and in-neighbour row j are non-zero.  Also
+        returns the bytes of the earlier rule, which charged every sector
+        a missing row's frontier touches, zero words included."""
         unreached = d_ < 0
         hit = unreached & (new_ != 0)
         miss = (unreached & (new_ == 0)).to(torch.float32)
         act = fp_ != 0
         pad = -act.shape[1] % sector
-        act_sec = torch.nn.functional.pad(act, (0, pad)).reshape(
-            act.shape[0], -1, sector).any(dim=2).to(torch.float32)
-        miss_sec = ((miss.t() @ act_sec) > 0).sum(dim=1)     # (n_pad,)
-        sectors = torch.where(miss_sec > 0, miss_sec,
-                              hit.any(dim=0).to(miss_sec.dtype))
+
+        def sectors_of(mask):                # (rows, W) -> (rows, W / 8)
+            return torch.nn.functional.pad(mask, (0, pad)).reshape(
+                mask.shape[0], -1, sector).any(dim=2)
+
+        miss_sec = ((miss.t() @ sectors_of(act).to(torch.float32)) > 0) \
+            .sum(dim=1)                                      # (n_pad,)
+        hit_col = hit.any(dim=0)
+        old = 4 * sector * int(torch.where(miss_sec > 0, miss_sec,
+                                           hit_col.to(miss_sec.dtype)).sum())
+        live = nz_ > 0                                       # (n_pad, W)
+        selected = ((miss.t() @ act.to(torch.float32)) > 0) & live
+        sel_sec = sectors_of(selected).sum(dim=1).double()
+        per_col = torch.where(
+            miss.sum(dim=0) > 0,
+            torch.minimum(4.0 * sector * sel_sec,
+                          8.0 * live.sum(dim=1).double()),
+            4.0 * sector * hit_col.double())
         both = act.to(torch.float32) @ nz_.t()               # (S, n_pad)
         ops = 2.0 * (float(hit.sum())
                      + float(both[miss > 0].double().sum()))
-        return 4 * sector * int(sectors.sum()), ops
+        return int(per_col.sum()), ops, old
 
     def state_bytes(s_, n_):
         return s_ * n_ * (4 + 1 + 4)         # dist in, new + dist out
@@ -634,6 +677,45 @@ def main() -> int:
             shape=dict(s=s, n_pad=n_pad, words=words), **extra))
         emit(phase="kernel", **rows_out[-1])
 
+    # a live-word index: built once per prepared graph, timed alone
+    def index_row(name, build, plain, operand, per_word, graph="rmat16"):
+        got, want = build(), plain()
+        if not (torch.equal(got.offsets, want.offsets)
+                and torch.equal(got.words, want.words)
+                and (got.values is None) == (want.values is None)
+                and (got.values is None
+                     or torch.equal(got.values, want.values))
+                and got.rows_live == want.rows_live):
+            raise AssertionError(f"{name}: index differs from its plain "
+                                 f"version")
+        rows = operand.shape[0]
+        index_bytes = 4 * (rows + 1 + got.words.numel()
+                           + (0 if got.values is None
+                              else got.values.numel()))
+        t_bytes = (operand.numel() * operand.element_size()
+                   + index_bytes) / HBM_BYTES_PER_S * 1e3
+        rows_out.append(dict(
+            name=name, route="cuda", source=sources_of[name],
+            replaces=REPLACES[name], launches=launches[name],
+            max_abs_err=0.0, ms=cuda_ms(torch, build, 2),
+            plain_ms=cuda_ms(torch, plain, 1), bound_ms=t_bytes,
+            bound_by="bytes", library_ms=None, match=True,
+            state=f"{graph}, the {operand.dtype} operand, n_pad {n_pad}",
+            launches_by_graph=by_graph.get(name, {}),
+            shape=dict(rows=rows, n_pad=n_pad, per_word=per_word),
+            library_note="no single PyTorch call builds a compacted "
+                         "per-row word list"))
+        emit(phase="index", name=name, graph=graph,
+             index_ms=rows_out[-1]["ms"],
+             plain_ms=rows_out[-1]["plain_ms"],
+             bound_ms=rows_out[-1]["bound_ms"], live_words=got.words.numel(),
+             rows_live=got.rows_live, index_bytes=index_bytes,
+             operand_bytes=operand.numel() * operand.element_size(),
+             bitmap_bytes=rows * (operand.shape[1] // per_word) // 8,
+             match=True)
+        emit(phase="kernel", **rows_out[-1])
+        return got
+
     n_run = 4                                 # sweeps per multi-sweep launch
     rmat_state = f"rmat16, S={s}, after {mid_step} sweeps"
     rmat_multi = f"{rmat_state}, {n_run} sweeps per launch"
@@ -641,22 +723,31 @@ def main() -> int:
     wk = 4 if words % 8 else 8
     io = s * words * 4 + state_bytes(s, n_pad)
 
+    # K1 / K2 read the packed operand's live-word index, built at set-up
+    pidx = index_row("packed_live_words",
+                     lambda: bovm.packed_live_words(at),
+                     lambda: R.packed_live_words_ref(at), at, 1)
+
     def k1():
-        return bovm.packed_push_sweep(fp, at, d, step, bs=128, bn=128, wk=wk)
+        return bovm.packed_push_sweep(fp, at, d, step, bs=128, bn=128, wk=wk,
+                                      index=pidx)
 
     def k1_plain():
         return R.packed_pull_ref(fp, at, d, step)
 
     out1 = k1_plain()
-    need_bytes, need_ops = packed_need(fp, d, out1[0])
+    need_bytes, need_ops, old1 = packed_need(fp, d, out1[0])
     record("packed_push_sweep", rmat_state, k1, k1_plain, k1(), out1,
-           io + need_bytes, need_ops, WORD_OPS_PER_S, 5, library_ms)
+           io + need_bytes, need_ops, WORD_OPS_PER_S, 20, library_ms,
+           device_ms=graph_ms(torch, k1, 20))
 
     def k2():
-        return bovm.packed_pull_sweep(fp, at, d, step, bs=8, bn=128, wk=wk)
+        return bovm.packed_pull_sweep(fp, at, d, step, bs=8, bn=128, wk=wk,
+                                      index=pidx)
 
     record("packed_pull_sweep", rmat_state, k2, k1_plain, k2(), out1,
-           io + need_bytes, need_ops, WORD_OPS_PER_S, 5, library_ms)
+           io + need_bytes, need_ops, WORD_OPS_PER_S, 20, library_ms,
+           device_ms=graph_ms(torch, k2, 20))
 
     def k3():
         return bovm.fused_boolean_multisweep(f, at, d, mid_step, n_run,
@@ -668,18 +759,18 @@ def main() -> int:
     def multi_need(fp_, at_, d_, nz_, step0, sweeps):
         """The packed need of the sweeps one multi-sweep launch runs on
         this state, one packed sweep each, to the first empty one."""
-        b_, o_ = 0, 0.0
+        b_, o_, old_ = 0, 0.0, 0
         for t in range(sweeps):
             new_t, d_next = R.packed_pull_ref(fp_, at_, d_, step0 + 1 + t)
-            nb, no = packed_need(fp_, d_, new_t, nz_)
-            b_, o_, d_ = b_ + nb, o_ + no, d_next
+            nb, no, nold = packed_need(fp_, d_, new_t, nz_)
+            b_, o_, old_, d_ = b_ + nb, o_ + no, old_ + nold, d_next
             if not bool(new_t.any()):
                 break
             fp_ = pack_bits(new_t != 0)
-        return b_, o_
+        return b_, o_, old_
 
     out3 = k3()
-    b3, o3 = multi_need(fp, at, d, nz_at, mid_step, n_run)
+    b3, o3, old3 = multi_need(fp, at, d, nz_at, mid_step, n_run)
     record("fused_boolean_multisweep", rmat_multi, k3, k3_plain, out3,
            k3_plain(), io + b3, o3, WORD_OPS_PER_S, 3, None,
            library_note=MULTI_SWEEP_NOTE)
@@ -718,30 +809,33 @@ def main() -> int:
     gf, gd = gst.frontier.contiguous(), gst.dist.contiguous()
     gfp = pack_bits(gf != 0)
     gnz = (gat != 0).to(torch.float32)
+    gidx = index_row("packed_live_words",
+                     lambda: bovm.packed_live_words(gat),
+                     lambda: R.packed_live_words_ref(gat), gat, 1, "grid256")
     grid_state = f"grid256, S={gf.shape[0]}, after {GRID_STEPS} sweeps"
     gstep = GRID_STEPS + 1
     yard_note = "fp16 matmul of the rmat16 state: same shapes"
 
     def g1():
         return bovm.packed_push_sweep(gfp, gat, gd, gstep, bs=128, bn=128,
-                                      wk=wk)
+                                      wk=wk, index=gidx)
 
     def g1_plain():
         return R.packed_pull_ref(gfp, gat, gd, gstep)
 
     gout1 = g1_plain()
-    gb1, go1 = packed_need(gfp, gd, gout1[0], gnz)
+    gb1, go1, gold1 = packed_need(gfp, gd, gout1[0], gnz)
     record("packed_push_sweep", grid_state, g1, g1_plain, g1(), gout1,
-           io + gb1, go1, WORD_OPS_PER_S, 5, library_ms,
-           library_note=yard_note)
+           io + gb1, go1, WORD_OPS_PER_S, 20, library_ms,
+           library_note=yard_note, device_ms=graph_ms(torch, g1, 20))
 
     def g2():
         return bovm.packed_pull_sweep(gfp, gat, gd, gstep, bs=8, bn=128,
-                                      wk=wk)
+                                      wk=wk, index=gidx)
 
     record("packed_pull_sweep", grid_state, g2, g1_plain, g2(), gout1,
-           io + gb1, go1, WORD_OPS_PER_S, 5, library_ms,
-           library_note=yard_note)
+           io + gb1, go1, WORD_OPS_PER_S, 20, library_ms,
+           library_note=yard_note, device_ms=graph_ms(torch, g2, 20))
 
     def g3():
         return bovm.fused_boolean_multisweep(gf, gat, gd, GRID_STEPS,
@@ -753,12 +847,27 @@ def main() -> int:
                                               GRID_RUN)
 
     gout3 = g3()
-    gb3, go3 = multi_need(gfp, gat, gd, gnz, GRID_STEPS, GRID_RUN)
+    gb3, go3, gold3 = multi_need(gfp, gat, gd, gnz, GRID_STEPS, GRID_RUN)
     record("fused_boolean_multisweep",
            f"{grid_state}, {GRID_RUN} sweeps per launch", g3, g3_plain,
            gout3, g3_plain(), io + gb3, go3, WORD_OPS_PER_S, 3, None,
            library_note=MULTI_SWEEP_NOTE)
-    del gpg, gat, gst, gf, gd, gfp, gnz, gout1, gout3
+    # K1 / K2 / K3's operand bytes, beside those of the earlier rule
+    emit(phase="bound_recount", rule="per open column: the cheaper of "
+         "its index entries and the sectors of the live words a missing "
+         "row's frontier selects, or one sector if every pending row hits "
+         "(earlier: every sector a missing row's frontier touches, zero "
+         "words included)",
+         packed_push_sweep={"rmat16": dict(operand_bytes=need_bytes,
+                                           earlier_rule_bytes=old1),
+                            "grid256": dict(operand_bytes=gb1,
+                                            earlier_rule_bytes=gold1)},
+         fused_boolean_multisweep={"rmat16": dict(operand_bytes=b3,
+                                                  earlier_rule_bytes=old3),
+                                   "grid256": dict(operand_bytes=gb3,
+                                                   earlier_rule_bytes=gold3)},
+         state_bytes=io)
+    del gpg, gat, gst, gf, gd, gfp, gnz, gout1, gout3, gidx
     torch.cuda.empty_cache()
 
     # -- K5 / K6 on a mid-run counting state, full width ---------------------
@@ -816,38 +925,6 @@ def main() -> int:
            tile_bytes=tile_bytes(cf, cd), max_sigma=float(csg.max()),
            sigma_exact_below=EXACT_F32)
 
-    # K6's live-word index: built once per prepared graph, timed alone
-    def index_row(name, build, plain, operand, per_word):
-        got, want = build(), plain()
-        if not (torch.equal(got.offsets, want.offsets)
-                and torch.equal(got.words, want.words)
-                and got.rows_live == want.rows_live):
-            raise AssertionError(f"{name}: index differs from its plain "
-                                 f"version")
-        rows = operand.shape[0]
-        index_bytes = 4 * (rows + 1 + got.words.numel())
-        t_bytes = (operand.numel() * operand.element_size()
-                   + index_bytes) / HBM_BYTES_PER_S * 1e3
-        rows_out.append(dict(
-            name=name, route="cuda", source=sources_of[name],
-            replaces=REPLACES[name], launches=launches[name],
-            max_abs_err=0.0, ms=cuda_ms(torch, build, 2),
-            plain_ms=cuda_ms(torch, plain, 1), bound_ms=t_bytes,
-            bound_by="bytes", library_ms=None, match=True,
-            state=f"rmat16, the {operand.dtype} operand, n_pad {n_pad}",
-            launches_by_graph=by_graph.get(name, {}),
-            shape=dict(rows=rows, n_pad=n_pad, per_word=per_word),
-            library_note="no single PyTorch call builds a compacted "
-                         "per-row word list"))
-        emit(phase="index", name=name, index_ms=rows_out[-1]["ms"],
-             plain_ms=rows_out[-1]["plain_ms"],
-             bound_ms=rows_out[-1]["bound_ms"], live_words=got.words.numel(),
-             rows_live=got.rows_live, index_bytes=index_bytes,
-             bitmap_bytes=rows * (operand.shape[1] // per_word) // 8,
-             match=True)
-        emit(phase="kernel", **rows_out[-1])
-        return got
-
     cidx = index_row("nonzero_words", lambda: counting.nonzero_words(adj),
                      lambda: CR.nonzero_words_ref(adj), adj, 16)
 
@@ -882,7 +959,7 @@ def main() -> int:
                                         open_sector_bytes=old6))
     # -- K7 / K8 / K9 on a mid-run tropical state, full width ----------------
     # free the boolean and counting operands before the 17.2 GB f32 one
-    del adj, at, pg, lib_f, fs, cf, cd, csg, cst, f, d, fp, st, cidx
+    del adj, at, pg, lib_f, fs, cf, cd, csg, cst, f, d, fp, st, cidx, pidx
     torch.cuda.empty_cache()
     pw = repro_torch.prepare(graphs["rmat16"],
                              weights=lanes_of["rmat16"]).prepared_weighted()

@@ -92,6 +92,8 @@ class PreparedGraph:
                                                           repr=False)
     _adj_index: Optional[kernel_common.WordIndex] = dataclasses.field(
         default=None, repr=False)
+    _adj_pull_index: Optional[kernel_common.WordIndex] = dataclasses.field(
+        default=None, repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -121,6 +123,18 @@ class PreparedGraph:
         if self._adj_pull is None:
             self._adj_pull = self.graph.to_pull_packed(self.n_pad)
         return self._adj_pull
+
+    @property
+    def adj_pull_index(self) -> kernel_common.WordIndex:
+        """Live-word index of ``adj_pull``: per target column, the
+        positions and values of its non-zero packed words (the packed
+        push and pull kernels read only those).  Built once, from the
+        operand, by the boolean kernel set's builder; it is not rebuilt if
+        ``adj_pull`` is changed in place."""
+        if self._adj_pull_index is None:
+            self._adj_pull_index = kernel_registry.get("boolean") \
+                .operand_index(self.adj_pull)
+        return self._adj_pull_index
 
 
 def prepare_graph(g: CSRGraph, *, align: int = 128,
@@ -193,7 +207,9 @@ def choose_direction(stats: SweepStats, *, n_pad: int, s: int, m_pad: int,
 def _run_batch(adj, adj_pull, src_idx, dst_idx, deg, sources: torch.Tensor,
                n_valid: int, *, cfg: EngineConfig, n_real: int, n_pad: int,
                max_steps: int, use_kernel: bool, forced_dir: Optional[int],
-               fused_steps: int = 0) -> SweepState:
+               fused_steps: int = 0,
+               index: Optional[kernel_common.WordIndex] = None
+               ) -> SweepState:
     s = sources.shape[0]
     m_pad = src_idx.shape[0]
     bs = min(s, 128)
@@ -211,7 +227,8 @@ def _run_batch(adj, adj_pull, src_idx, dst_idx, deg, sources: torch.Tensor,
 
     forms = S.boolean_forms(adj, adj_pull, src_idx, dst_idx, n_pad=n_pad,
                             s=s, bn=cfg.bn, bk=cfg.bk,
-                            pull_chunk=cfg.pull_chunk, use_kernel=use_kernel)
+                            pull_chunk=cfg.pull_chunk, use_kernel=use_kernel,
+                            index=index)
 
     choose = None
     if forced_dir is None:
@@ -253,9 +270,12 @@ def measure_sweep_costs(pg: PreparedGraph, s: int, cfg: EngineConfig, *,
     dist = torch.full((s, n_pad), UNREACHED, dtype=torch.int32,
                       device=pg.device)
     dist[:, ::4] = 1
+    index = pg.adj_pull_index if (
+        use_kernel and pg.device.type == "cuda") else None
     forms = S.boolean_forms(pg.adj, pg.adj_pull, pg.graph.src, pg.graph.dst,
                             n_pad=n_pad, s=s, bn=cfg.bn, bk=cfg.bk,
-                            pull_chunk=cfg.pull_chunk, use_kernel=use_kernel)
+                            pull_chunk=cfg.pull_chunk, use_kernel=use_kernel,
+                            index=index)
     result = S.time_sweep_forms(forms, f, dist)
     pg.cost_cache[key] = result
     return result
@@ -326,6 +346,12 @@ def apsp_engine_blocks(
     adj_pull = pg.adj_pull if (
         forced_dir in (None, PULL)
         or (forced_dir in (None, PUSH) and use_kernel)) else None
+    # the per-sweep kernels on the card read the packed operand's
+    # live-word index (built once per prepared graph); the fused block
+    # reads the operand, and the plain versions on the CPU take no index
+    index = pg.adj_pull_index if (
+        use_kernel and pg.device.type == "cuda" and adj_pull is not None
+        and not fused_steps) else None
     for lo in range(0, len(srcs), B):
         block = srcs[lo: lo + B]
         valid = len(block)
@@ -335,7 +361,8 @@ def apsp_engine_blocks(
                         torch.from_numpy(padded).to(pg.device), valid,
                         cfg=config, n_real=n, n_pad=pg.n_pad,
                         max_steps=max_steps, use_kernel=use_kernel,
-                        forced_dir=forced_dir, fused_steps=fused_steps)
+                        forced_dir=forced_dir, fused_steps=fused_steps,
+                        index=index)
         yield block, st.dist[:valid, :n], st
 
 

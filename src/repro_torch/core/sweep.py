@@ -251,8 +251,8 @@ def _discover(hits: torch.Tensor, d: torch.Tensor, step: int):
 
 def boolean_forms(adj, adj_pull, src_idx, dst_idx, *, n_pad: int, s: int,
                   bn: int = 128, bk: int = 128, pull_chunk: int = 512,
-                  use_kernel: bool = False,
-                  track_parent: bool = False) -> Tuple[SweepForm, ...]:
+                  use_kernel: bool = False, track_parent: bool = False,
+                  index=None) -> Tuple[SweepForm, ...]:
     """(push, pull, sparse) boolean sweep forms over identical state.
 
     ``adj``/``adj_pull`` may be ``None`` when the caller has resolved a
@@ -263,7 +263,9 @@ def boolean_forms(adj, adj_pull, src_idx, dst_idx, *, n_pad: int, s: int,
 
     ``use_kernel`` swaps the push/pull closures for the boolean kernels
     looked up in :mod:`repro_torch.kernels.registry`; both kernel
-    directions read the bit-packed ``adj_pull`` operand.  The reference
+    directions read the bit-packed ``adj_pull`` operand through
+    ``index``, its live-word index (``PreparedGraph.adj_pull_index``;
+    ``None``: each launch on the card builds it).  The reference
     push is an f32 product with the dense ``adj`` (exact: counts stay
     below 2^24), chunked over destination columns like the pull.
     """
@@ -278,12 +280,13 @@ def boolean_forms(adj, adj_pull, src_idx, dst_idx, *, n_pad: int, s: int,
             # the operand's word width sets the push word tile
             new, dist = K["push"](pack_bits(f != 0), adj_pull, d, step,
                                   bs=bs, bn=bn,
-                                  wk=_pull_kernel_wk(adj_pull.shape[1]))
+                                  wk=_pull_kernel_wk(adj_pull.shape[1]),
+                                  index=index)
             return new, dist, p
 
         def pull(f, d, p, step):
             new, dist = K["pull"](pack_bits(f != 0), adj_pull, d, step,
-                                  bs=min(s, 8), bn=bn, wk=wk)
+                                  bs=min(s, 8), bn=bn, wk=wk, index=index)
             return new, dist, p
     else:
         def push(f, d, p, step):

@@ -1,7 +1,8 @@
 from .kernel import (fused_boolean_multisweep, fused_smem_bytes, fused_sweep,
-                     packed_pull_sweep, packed_push_sweep, reset_launches)
-from .ref import (fused_boolean_multisweep_ref, packed_pull_ref,
-                  packed_push_ref, sweep_ref)
+                     packed_live_words, packed_pull_sweep, packed_push_sweep,
+                     reset_launches)
+from .ref import (fused_boolean_multisweep_ref, packed_live_words_ref,
+                  packed_pull_ref, packed_push_ref, sweep_ref)
 
 from .. import registry
 
@@ -28,6 +29,8 @@ registry.register(registry.KernelSet(
     notes="bit-packed push and pull word-AND/OR sweeps on the CUDA cores "
           "(no float GEMM on the boolean kernel path; the int8 "
           "tensor-core GEMM push survives as push_f32) + the fused "
-          "multi-sweep kernel, one thread block cluster per row tile",
+          "multi-sweep kernel, one thread block cluster per row tile; "
+          "push and pull read the packed operand's live-word index",
     fused_forms={"push": fused_boolean_multisweep},
+    operand_index=packed_live_words,
 ))

@@ -1,31 +1,36 @@
 // Hand-written Hopper (sm_90a) kernels for the boolean DAWN sweep.
 //
-// Four kernels, one per Pallas kernel of src/repro/kernels/bovm/kernel.py.
-// Packed words arrive as int32 tensors carrying the uint32 bit pattern
-// (node 32*w + b is bit b of word w) and are read here as uint32_t.
-// Every entry point is a plain C function that launches on the given
-// stream and returns cudaGetLastError(); it allocates nothing.
+// Four kernels, one per Pallas kernel of src/repro/kernels/bovm/kernel.py,
+// and the builder of the index that two of them read.  Packed words
+// arrive as int32 tensors carrying the uint32 bit pattern (node 32*w + b
+// is bit b of word w) and are read here as uint32_t.  Every entry point is
+// a plain C function that launches on the given stream and returns
+// cudaGetLastError(); it allocates nothing.
 //
-// The packed sweeps share one way of testing a column: a warp tests one
-// target column j against the packed frontier rows of its tile
-// (scan_column in K1/K2, scan_listed in K3).  It reads only the
-// in-neighbour words of j where the tile's frontier has a bit set (a
-// compacted list of active words, built per tile in shared memory), tests
-// only rows for which j is still unreached (Thm 3.2), and stops once
-// every such row has hit (K1/K2 after the round of 32 words, K3 after the
-// staged pass of the list in which that happens).  The operand (n, W) is
-// the largest input by far (n*n/8 bytes); what bounds these kernels is
-// how much of it they must read, and the active-word list makes that read
-// proportional to the frontier instead of to n*n.  K4 is the int8
-// tensor-core product of the unpacked (k, n) operand.
+// The packed operand at (n, W) holds column j's in-neighbours as words;
+// it is the largest input by far (n*n/8 bytes) and almost all of it is
+// zero: a column has a few dozen live (non-zero) words on an RMAT graph
+// and at most four on a grid, out of W = n/32.  K1 and K2 never read it.
+// They read its live-word index (a packed CSC, built once per prepared
+// graph by packed_words_kernel): per column the positions and values of
+// its live words.  Warps walk the lists of the columns still unreached in
+// some row (Thm 3.2), cut into work items, a lane per entry, against the
+// frontier staged as per-bit row masks; an item stops once every pending
+// row of its column has hit.  K3 still reads the operand itself, through
+// a compacted list of the words where its row tile's frontier is active.
+// K4 is the int8 tensor-core product of the unpacked (k, n) operand.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;        // per-sweep packed kernels (K1, K2)
-constexpr int kChunkWords = 256;     // frontier words staged per pass (K1/K2)
+constexpr int kIndexThreads = 256;   // index builder: one operand row a warp
+constexpr int kPackedThreads = 128;  // K1/K2 sweep: a column a thread
+constexpr int kPackedRows = 32;      // K1/K2: source rows a group
+constexpr int kEntryLoads = 4;       // K1/K2 sweep: entry loads in flight
+constexpr int kWalkThreads = 256;    // K1/K2 walk: a work item a warp
+constexpr int kBitLoads = 4;         // K1/K2 walk: row-mask loads in flight
 constexpr int kFusedThreads = 1024;  // K3: one CTA per SM
 constexpr int kListChunk = 256;      // K3 active words staged per pass
 constexpr int kMaskPitch = 33;       // K3 row masks per staged word, padded
@@ -33,125 +38,229 @@ constexpr int kScanCols = 2;         // K3 columns a warp scans at once
 
 constexpr unsigned kFull = 0xffffffffu;
 
-// Rows of `pend` (a bitmask over the tile's rows) whose frontier shares a
-// bit with the in-neighbour words of one target column.  Called by a whole
-// warp with warp-uniform arguments; returns a warp-uniform mask.
-//   at_row      in-neighbour words of the column (global), indexed by word
-//   fs, ld      the tile's frontier words in shared memory: fs[r * ld + w]
-//   actw, actu  the active words of the tile and their OR over rows
-__device__ __forceinline__ uint32_t scan_column(
-    const uint32_t* __restrict__ at_row, const uint32_t* fs, int ld,
-    const int* actw, const uint32_t* actu, int nact, uint32_t pend,
-    int lane) {
-  uint32_t found = 0;
-  for (int base = 0; base < nact; base += 32) {
-    const int k = base + lane;
-    uint32_t h = 0;
-    if (k < nact) {
-      const int w = actw[k];
-      const uint32_t a = __ldg(at_row + w);
-      if (a & actu[k]) {
-        uint32_t m = pend & ~found;
-        while (m) {
-          const int r = __ffs(m) - 1;
-          m &= m - 1;
-          if (fs[r * ld + w] & a) h |= 1u << r;
-        }
-      }
+// The live-word index of the packed operand: per row j of at (n, W), the
+// ascending positions w and the values at[j, w] of its non-zero words.
+// Bound: bytes (the operand once per pass).  A warp per row reads 32
+// words a round and compacts the live ones by ballot.  With offsets null
+// it writes the row's live-word count to out_w[j]; with the prefix-summed
+// offsets it fills out_w / out_v from offsets[j].
+__global__ void __launch_bounds__(kIndexThreads) packed_words_kernel(
+    const uint32_t* __restrict__ at, int rows, int W,
+    const int32_t* __restrict__ offsets, int32_t* __restrict__ out_w,
+    uint32_t* __restrict__ out_v) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (kIndexThreads / 32) + (threadIdx.x >> 5);
+  if (row >= rows) return;                               // warp-uniform
+  const uint32_t* p = at + (size_t)row * W;
+  int pos = offsets ? offsets[row] : 0;
+#pragma unroll 4
+  for (int w0 = 0; w0 < W; w0 += 32) {
+    const int w = w0 + lane;
+    const uint32_t v = w < W ? __ldg(p + w) : 0u;
+    const uint32_t m = __ballot_sync(kFull, v != 0u);
+    if (offsets && v) {
+      const int k = pos + __popc(m & ((1u << lane) - 1u));
+      out_w[k] = w;
+      out_v[k] = v;
     }
-    found |= __reduce_or_sync(kFull, h);
-    if ((found & pend) == pend) break;
+    pos += __popc(m);
   }
-  return found & pend;
+  if (!offsets && lane == 0) out_w[row] = pos;
 }
 
-// K1 packed_push_sweep (kGated) and K2 packed_pull_sweep.
-// Replaces _packed_push_kernel / _packed_pull_kernel (+ _word_hits) of
-// src/repro/kernels/bovm/kernel.py.
-// Bound: bytes.  A sweep must read the in-neighbour words of every
-// unreached target where the frontier is active: at most the whole
-// (n, W) operand, far less on a sparse frontier.  Design: one block per
-// (rows-row group, bn-column tile); the frontier rows are staged in
-// shared memory kChunkWords words at a time with their active-word list,
-// one warp scans one column at a time, and the occupancy tables skip
-// whole output tiles (o_occ) and frontier word blocks (f_occ) before any
-// operand word is read.
-template <bool kGated>
-__global__ void __launch_bounds__(kThreads) packed_sweep_kernel(
-    const uint32_t* __restrict__ f, const uint32_t* __restrict__ at,
-    const int32_t* __restrict__ dist, int8_t* __restrict__ new_out,
-    int32_t* __restrict__ dist_out, const uint8_t* __restrict__ f_occ,
-    const uint8_t* __restrict__ o_occ, int n, int W, int rows, int bs,
-    int bn, int wk, int step) {
-  extern __shared__ uint32_t smem[];
-  __shared__ int nact;
-  uint32_t* pend = smem;                                 // [bn]
-  uint32_t* hits = pend + bn;                            // [bn]
-  int* actw = reinterpret_cast<int*>(hits + bn);         // [kChunkWords]
-  uint32_t* actu = reinterpret_cast<uint32_t*>(actw + kChunkWords);
-  uint32_t* fs = actu + kChunkWords;                     // [rows][kChunkWords]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int row0 = blockIdx.x * rows;
-  const int col0 = blockIdx.y * bn;
-  const int ti = row0 / bs;                              // table row
-  const int gj = n / bn, gk = W / wk;
-  const bool live = !kGated || o_occ[(size_t)ti * gj + blockIdx.y];
-
-  for (int c = tid; c < bn; c += blockDim.x) {
-    pend[c] = 0;
-    hits[c] = 0;
-  }
+// The frontier of K1/K2 as row masks: fp (S, W) -> rm (S32 / 32, W, 32),
+// rm[g][w][b] the rows of group g (32 rows; S32 = S rounded up to 32,
+// rows past S empty) whose word w has bit b set.  An index entry (w, a)
+// then hits the rows OR_{b in a} rm[g][w][b]: one 4-byte load per set
+// bit of a, where the words themselves would take one per row.  A 32 x 32
+// tile (rows x words) per block, a warp per word, one ballot per bit.
+// Also zeroes the work-item count that the next launch appends to.
+__global__ void __launch_bounds__(1024) stage_frontier_kernel(
+    const uint32_t* __restrict__ fp, uint32_t* __restrict__ rm,
+    int* __restrict__ count, int S, int W) {
+  __shared__ uint32_t tile[32][33];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int w0 = blockIdx.x * 32, g = blockIdx.y, r0 = g * 32;
+  if ((blockIdx.x | blockIdx.y | tx | ty) == 0) *count = 0;
+  tile[ty][tx] = w0 + tx < W && r0 + ty < S
+                     ? __ldg(fp + (size_t)(r0 + ty) * W + w0 + tx) : 0u;
   __syncthreads();
-  if (live) {
-    for (int p = tid; p < rows * bn; p += blockDim.x) {
-      const int r = p / bn, c = p % bn;
-      if (dist[(size_t)(row0 + r) * n + col0 + c] < 0)
-        atomicOr(&pend[c], 1u << r);
+  const int w = w0 + ty;                       // warp ty: word w, lane: row
+  if (w < W) {
+    const uint32_t v = tile[tx][ty];
+    uint32_t mine = 0u;
+    uint32_t bits = __reduce_or_sync(kFull, v);
+    while (bits) {
+      const int b = __ffs(bits) - 1;
+      bits &= bits - 1;
+      const uint32_t m = __ballot_sync(kFull, (v >> b) & 1u);
+      if (tx == b) mine = m;
     }
-    for (int w0 = 0; w0 < W; w0 += kChunkWords) {
-      const int cw = min(kChunkWords, W - w0);
-      if (tid == 0) nact = 0;
-      __syncthreads();
-      for (int w = tid; w < cw; w += blockDim.x) {
-        const bool gate = !kGated || f_occ[(size_t)ti * gk + (w0 + w) / wk];
-        uint32_t u = 0;
-        for (int r = 0; r < rows; ++r) {
-          const uint32_t v =
-              gate ? __ldg(f + (size_t)(row0 + r) * W + w0 + w) : 0u;
-          fs[r * kChunkWords + w] = v;
-          u |= v;
-        }
-        if (u) {
-          const int k = atomicAdd(&nact, 1);
-          actw[k] = w;
-          actu[k] = u;
-        }
-      }
-      __syncthreads();
-      const int na = nact;
-      if (na) {
-        for (int c = warp; c < bn; c += nwarps) {
-          const uint32_t p = pend[c] & ~hits[c];
-          if (!p) continue;
-          const uint32_t h = scan_column(at + (size_t)(col0 + c) * W + w0,
-                                         fs, kChunkWords, actw, actu, na, p,
-                                         lane);
-          if (lane == 0 && h) hits[c] |= h;
-        }
-      }
-      __syncthreads();
+    rm[((size_t)g * W + w) * 32 + tx] = mine;
+  }
+}
+
+// K1 packed_push_sweep and K2 packed_pull_sweep: one kernel sequence.
+// Replaces _packed_push_kernel / _packed_pull_kernel (+ _word_hits) of
+// src/repro/kernels/bovm/kernel.py: hits[s, j] = OR_w(f[s, w] & at[j, w]),
+// new = hits & unreached, dist = step where new.  The two differ on the
+// TPU only in their tiles and in K1's occupancy skips, which are inert;
+// here the o_occ skip is finer and comes from data the sweep reads
+// anyway: a column whose rows are all reached reads no index entry.
+// f_occ is dropped: a frontier word block that is all zero holds no bit,
+// so its row masks are zero.
+// Bound: bytes.  The state (dist in, new and dist out: 9 B per entry) is
+// the floor; beyond it a sweep must see, for each target with an
+// unreached row, the live operand words that a missing row's frontier
+// selects.  Design: three launches.
+//   stage   the frontier as row masks (stage_frontier_kernel);
+//   sweep   a thread per (32-row group, column) reads the column's dist
+//           once, into registers, and forms its pending mask (rows past S
+//           masked).  A column with at most `short_len` index entries is
+//           walked by its thread: kEntryLoads entries a round, the row
+//           masks of each entry's set bits ORed, until every pending row
+//           has hit.  The thread then writes new and dist_out a row at a
+//           time, coalesced.  A longer column (an RMAT hub) writes "no
+//           hit" the same way, and its list is cut into work items of at
+//           most `item` entries, appended by warp-aggregated atomics to
+//           one list for the whole sweep;
+//   walk    a persistent grid of warps takes the items in turn.  Lane k
+//           loads entry (w, a) of a round of 32 and ORs the row masks of
+//           the set bits of a, kBitLoads loads at a time (RMAT's words
+//           hold one or two bits); a warp OR gives the rows the round
+//           hits, and the item stops once every pending row of the column
+//           has hit.  The item writes new and dist at the rows it found (a
+//           row found twice is written twice, with the same values) and
+//           ORs them into the column's mask (an L2 atomic), which later
+//           items of the column read first.  One list for the card bounds
+//           a hub column's tail and balances graphs whose heavy columns
+//           sit together (RMAT's low ids).
+__global__ void __launch_bounds__(kPackedThreads) packed_sweep_kernel(
+    const int32_t* __restrict__ offsets, const int32_t* __restrict__ words,
+    const uint32_t* __restrict__ values, const uint32_t* __restrict__ rm,
+    const int32_t* __restrict__ dist, int8_t* __restrict__ new_out,
+    int32_t* __restrict__ dist_out, uint32_t* __restrict__ pend,
+    uint32_t* __restrict__ hits, int4* __restrict__ list,
+    int* __restrict__ count, int S, int n, int W, int short_len, int item,
+    int step) {
+  const int lane = threadIdx.x & 31;
+  const int g = blockIdx.y, row0 = g * kPackedRows;
+  const int rv = min(kPackedRows, S - row0);     // valid rows
+  const int j = blockIdx.x * kPackedThreads + threadIdx.x;
+  const bool col = j < n;
+  int b = 0, e = 0;
+  int32_t d[kPackedRows];
+  uint32_t p = 0;
+  if (col) {
+    b = offsets[j];
+    e = offsets[j + 1];
+#pragma unroll
+    for (int r = 0; r < kPackedRows; ++r) {
+      d[r] = r < rv ? dist[(size_t)(row0 + r) * n + j] : 0;
+      p |= (uint32_t)(r < rv && d[r] < 0) << r;
     }
   }
-  // epilogue: new = hit & unreached, dist = step where new
-  for (int p = tid; p < rows * bn; p += blockDim.x) {
-    const int r = p / bn, c = p % bn;
-    const size_t idx = (size_t)(row0 + r) * n + col0 + c;
-    const int32_t d = dist[idx];
-    const bool nw = ((hits[c] >> r) & 1u) && d < 0;
-    new_out[idx] = nw ? 1 : 0;
-    dist_out[idx] = nw ? step : d;
+  if (e == b) p = 0;                             // no live word: no hit
+  const bool listed = p && e - b > short_len;
+  uint32_t h = 0u;
+  if (p && !listed) {
+    const uint32_t* rg = rm + (size_t)g * W * 32;
+    for (int k0 = b; k0 < e && (p & ~h); k0 += kEntryLoads) {
+      uint32_t a[kEntryLoads];
+      const uint32_t* rw[kEntryLoads];
+#pragma unroll
+      for (int i = 0; i < kEntryLoads; ++i) {
+        const bool in = k0 + i < e;
+        a[i] = in ? __ldg(values + k0 + i) : 0u;
+        rw[i] = rg + (in ? (size_t)__ldg(words + k0 + i) * 32 : 0);
+      }
+#pragma unroll
+      for (int i = 0; i < kEntryLoads; ++i) {
+        uint32_t x = a[i];
+        while (x) {
+          h |= __ldg(rw[i] + __ffs(x) - 1);
+          x &= x - 1;
+        }
+      }
+    }
+    h &= p;
+  }
+  if (col) {
+#pragma unroll
+    for (int r = 0; r < kPackedRows; ++r) {
+      if (r < rv) {
+        const size_t idx = (size_t)(row0 + r) * n + j;
+        const bool nw = (h >> r) & 1u;
+        new_out[idx] = nw ? 1 : 0;
+        dist_out[idx] = nw ? step : d[r];
+      }
+    }
+  }
+  if (listed) {
+    pend[(size_t)g * n + j] = p;
+    hits[(size_t)g * n + j] = 0u;
+  }
+  const int items = listed ? (e - b + item - 1) / item : 0;
+  int incl = items;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int x = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += x;
+  }
+  int base = 0;
+  if (lane == 31 && incl) base = atomicAdd(count, incl);
+  int k = __shfl_sync(kFull, base, 31) + incl - items;
+  for (int i = 0; i < items; ++i, ++k) {
+    const int k0 = b + i * item;
+    list[k] = make_int4(g, j, k0, min(k0 + item, e));
+  }
+}
+
+__global__ void __launch_bounds__(kWalkThreads) packed_walk_kernel(
+    const int4* __restrict__ list, const int* __restrict__ count,
+    const uint32_t* __restrict__ rm, const int32_t* __restrict__ words,
+    const uint32_t* __restrict__ values, const uint32_t* __restrict__ pend,
+    uint32_t* hits, int8_t* __restrict__ new_out,
+    int32_t* __restrict__ dist_out, int n, int W, int step) {
+  const int lane = threadIdx.x & 31;
+  const int per_block = kWalkThreads / 32;
+  const int warps = gridDim.x * per_block;
+  const int total = *count;
+  for (int it = blockIdx.x * per_block + (threadIdx.x >> 5); it < total;
+       it += warps) {
+    const int4 q = __ldg(list + it);             // group, column, entries
+    const size_t pj = (size_t)q.x * n + q.y;
+    const uint32_t need = __ldg(pend + pj) & ~__ldcg(hits + pj);
+    const uint32_t* rg = rm + (size_t)q.x * W * 32;
+    uint32_t found = 0;
+    for (int kb = q.z; kb < q.w && (need & ~found); kb += 32) {
+      const int k = kb + lane;
+      uint32_t a = 0u;
+      const uint32_t* rw = rg;
+      if (k < q.w) {
+        rw = rg + (size_t)__ldg(words + k) * 32;
+        a = __ldg(values + k);
+      }
+      uint32_t h = 0u;
+      while (__any_sync(kFull, a != 0u)) {
+        uint32_t m[kBitLoads];
+#pragma unroll
+        for (int i = 0; i < kBitLoads; ++i) {
+          m[i] = a ? __ldg(rw + __ffs(a) - 1) : 0u;
+          a &= a - 1;
+        }
+#pragma unroll
+        for (int i = 0; i < kBitLoads; ++i) h |= m[i];
+      }
+      found |= __reduce_or_sync(kFull, h) & need;
+    }
+    if (!found) continue;
+    if ((found >> lane) & 1u) {
+      const size_t idx = (size_t)(q.x * kPackedRows + lane) * n + q.y;
+      new_out[idx] = 1;
+      dist_out[idx] = step;
+    }
+    if (lane == 0) atomicOr(hits + pj, found);
   }
 }
 
@@ -707,21 +816,23 @@ cudaError_t set_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <bool kGated>
-int launch_packed(const void* f, const void* at, const void* dist,
-                  void* new_out, void* dist_out, const void* f_occ,
-                  const void* o_occ, int S, int n, int W, int rows, int bs,
-                  int bn, int wk, int step, void* stream) {
-  const size_t smem =
-      sizeof(uint32_t) * (2 * bn + 2 * kChunkWords + rows * kChunkWords);
-  cudaError_t err = set_smem(packed_sweep_kernel<kGated>, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(S / rows, n / bn);
-  packed_sweep_kernel<kGated><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)f, (const uint32_t*)at, (const int32_t*)dist,
-      (int8_t*)new_out, (int32_t*)dist_out, (const uint8_t*)f_occ,
-      (const uint8_t*)o_occ, n, W, rows, bs, bn, wk, step);
-  return (int)cudaGetLastError();
+// Blocks of the persistent K1/K2 walk: as many as the card holds at once.
+int walk_blocks(cudaError_t* err) {
+  static int cached_dev = -1, cached = 0;
+  int dev = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err != cudaSuccess) return 0;
+  if (dev != cached_dev) {
+    int sms = 0, per = 0;
+    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (*err == cudaSuccess)
+      *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per, packed_walk_kernel, kWalkThreads, 0);
+    if (*err != cudaSuccess) return 0;
+    cached_dev = dev;
+    cached = sms * per;
+  }
+  return cached;
 }
 
 using FusedKernel = void (*)(const uint32_t*, const uint32_t*,
@@ -765,20 +876,53 @@ cudaLaunchConfig_t fused_config(int S, int rows, int cluster, int smem,
 
 extern "C" {
 
-int dawn_packed_push_sweep(const void* f, const void* at, const void* dist,
-                           void* new_out, void* dist_out, const void* f_occ,
-                           const void* o_occ, int S, int n, int W, int rows,
-                           int bs, int bn, int wk, int step, void* stream) {
-  return launch_packed<true>(f, at, dist, new_out, dist_out, f_occ, o_occ, S,
-                             n, W, rows, bs, bn, wk, step, stream);
+// K1 / K2.  fp (S, W) the packed frontier; offsets (n + 1), words and
+// values the live-word index of the operand (dawn_packed_live_words);
+// columns of at most `short_len` entries are walked by one thread, longer
+// ones in work items of at most `item` entries.  Scratch: rm (S32 / 32,
+// W, 32) int32 (S32 = S rounded up to 32); pend and hits (S32 / 32, n)
+// int32; list (>= S32 / 32 * (live words / item + live columns), 4) int32;
+// count one int32.  Every scratch part 16-byte aligned.
+int dawn_packed_sweep(const void* fp, const void* offsets, const void* words,
+                      const void* values, const void* dist, void* new_out,
+                      void* dist_out, void* rm, void* pend, void* hits,
+                      void* list, void* count, int S, int n, int W,
+                      int short_len, int item, int step, void* stream) {
+  if (S < 1 || n < 1 || W < 1 || item < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  const int blocks = walk_blocks(&err);
+  if (!blocks) return (int)(err != cudaSuccess ? err : cudaErrorInvalidValue);
+  const int G = (S + kPackedRows - 1) / kPackedRows;
+  const cudaStream_t st = (cudaStream_t)stream;
+  stage_frontier_kernel<<<dim3((W + 31) / 32, G), dim3(32, 32), 0, st>>>(
+      (const uint32_t*)fp, (uint32_t*)rm, (int*)count, S, W);
+  packed_sweep_kernel<<<dim3((n + kPackedThreads - 1) / kPackedThreads, G),
+                        kPackedThreads, 0, st>>>(
+      (const int32_t*)offsets, (const int32_t*)words,
+      (const uint32_t*)values, (const uint32_t*)rm, (const int32_t*)dist,
+      (int8_t*)new_out, (int32_t*)dist_out, (uint32_t*)pend, (uint32_t*)hits,
+      (int4*)list, (int*)count, S, n, W, short_len, item, step);
+  packed_walk_kernel<<<blocks, kWalkThreads, 0, st>>>(
+      (const int4*)list, (const int*)count, (const uint32_t*)rm,
+      (const int32_t*)words, (const uint32_t*)values, (const uint32_t*)pend,
+      (uint32_t*)hits, (int8_t*)new_out, (int32_t*)dist_out, n, W, step);
+  return (int)cudaGetLastError();
 }
 
-int dawn_packed_pull_sweep(const void* f, const void* at, const void* dist,
-                           void* new_out, void* dist_out, int S, int n, int W,
-                           int rows, int bs, int bn, int step, void* stream) {
-  return launch_packed<false>(f, at, dist, new_out, dist_out, nullptr,
-                              nullptr, S, n, W, rows, bs, bn, W, step,
-                              stream);
+// The live-word index of the packed operand at (rows, W): with offsets
+// null, out (rows) receives each row's live-word count; with the
+// prefix-summed offsets (rows + 1), out and values receive the positions
+// and values of the live words.
+int dawn_packed_live_words(const void* at, const void* offsets, void* out,
+                           void* values, int rows, int W, void* stream) {
+  if (rows < 0 || W < 1) return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  const int per_block = kIndexThreads / 32;
+  packed_words_kernel<<<(rows + per_block - 1) / per_block, kIndexThreads, 0,
+                        (cudaStream_t)stream>>>(
+      (const uint32_t*)at, rows, W, (const int32_t*)offsets, (int32_t*)out,
+      (uint32_t*)values);
+  return (int)cudaGetLastError();
 }
 
 // `rows` (16 or 32) source rows per cluster of `cluster` (1..16) CTAs;

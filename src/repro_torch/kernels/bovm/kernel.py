@@ -9,6 +9,12 @@ checks, returning ``(new int8, dist int32[, prod, stopped])``.
   fused_boolean_multisweep  K3 — up to ``n_run`` sweeps per launch
   fused_sweep               K4 — masked int8 GEMM push (``push_f32``)
 
+and the builder of the packed operand's live-word index that K1 and K2
+read:
+
+  packed_live_words         (n, W) packed operand -> common.WordIndex of
+                            its non-zero words, positions and values
+
 For tensors on the CPU each wrapper computes its plain version
 (``ref.py``).  For tensors on the card it checks dtype, shape and
 contiguity, allocates the outputs, launches its kernel on the current
@@ -24,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -38,11 +45,14 @@ FUSED_CLUSTER = 16      # CTAs per K3 tile: a thread block cluster
 FUSED_LIST_CHUNK = 256  # K3 active words staged per pass (kListChunk)
 FUSED_MASK_PITCH = 33   # K3 row-mask words per staged word (kMaskPitch)
 FUSED_ROW_MULTIPLE = 8  # S the K3 wrapper takes; ragged tiles are masked
+SHORT_WORDS = 32        # K1/K2: columns of at most this many index entries
+                        # are walked by one thread, longer ones by warps
+ITEM_WORDS = 64         # K1/K2: index entries of one column per work item
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "dawn_packed_push_sweep": [_P] * 7 + [_I] * 8 + [_P],
-    "dawn_packed_pull_sweep": [_P] * 5 + [_I] * 7 + [_P],
+    "dawn_packed_sweep": [_P] * 12 + [_I] * 6 + [_P],
+    "dawn_packed_live_words": [_P] * 4 + [_I] * 2 + [_P],
     "dawn_fused_boolean_multisweep": [_P] * 9 + [_I] * 8 + [_P],
     "dawn_fused_active_clusters": [_I] * 4 + [_P],
     "dawn_fused_sweep": [_P] * 7 + [_I] * 7 + [_P],
@@ -69,15 +79,35 @@ def _ptr(t: torch.Tensor) -> int:
 
 def reset_launches() -> None:
     for fn in (packed_push_sweep, packed_pull_sweep,
-               fused_boolean_multisweep, fused_sweep):
+               fused_boolean_multisweep, fused_sweep, packed_live_words):
         fn.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the live-word index of the packed operand
+# --------------------------------------------------------------------------
+
+def packed_live_words(adj_in_packed: torch.Tensor) -> common.WordIndex:
+    """The live-word index of an (n, W) packed operand: per row (target
+    column) j, the positions and values of its non-zero words, a packed
+    CSC (``common.WordIndex`` with ``values``).  Built once per prepared
+    graph (``PreparedGraph.adj_pull_index``); on the card two passes of
+    one kernel (count, then fill at the prefix-summed offsets) read the
+    operand twice."""
+    if not adj_in_packed.is_cuda:
+        return ref.packed_live_words_ref(adj_in_packed)
+    common.check_cuda(adj_in_packed=(adj_in_packed, torch.int32))
+    index = common.build_word_index(_lib(), "dawn_packed_live_words",
+                                    adj_in_packed, with_values=True)
+    packed_live_words.launches += 1
+    return index
 
 
 # --------------------------------------------------------------------------
 # K1 / K2: bit-packed sweeps
 # --------------------------------------------------------------------------
 
-def _check_packed(frontier_packed, adj_in_packed, dist, bs, bn, wk):
+def _check_packed(frontier_packed, adj_in_packed, dist, bs, bn, wk, index):
     s, w = frontier_packed.shape
     n = adj_in_packed.shape[0]
     if adj_in_packed.shape != (n, w) or dist.shape != (s, n):
@@ -86,58 +116,86 @@ def _check_packed(frontier_packed, adj_in_packed, dist, bs, bn, wk):
     if s % bs or n % bn or w % wk:
         raise ValueError(f"tiles do not divide the shapes: {(s, n, w)} vs "
                          f"{(bs, bn, wk)}")
+    if index is not None:
+        common.check_index(index, n, dist.device, values=True)
     return s, n, w
 
 
-def _packed_outputs(frontier_packed, adj_in_packed, dist):
+def _packed_launch(frontier_packed, adj_in_packed, dist, step, index):
+    """K1 or K2 on the card (one kernel sequence for both): stage the
+    frontier as row masks, then read the state once, walking the pending
+    columns through the operand's live-word index (built here when not
+    given): the short lists a thread each, the long ones in work items a
+    warp each."""
     common.check_cuda(frontier_packed=(frontier_packed, torch.int32),
                       adj_in_packed=(adj_in_packed, torch.int32),
                       dist=(dist, torch.int32))
-    return torch.empty(dist.shape, dtype=torch.int8, device=dist.device), \
-        torch.empty_like(dist)
+    if index is None:
+        index = packed_live_words(adj_in_packed)
+    s, w = frontier_packed.shape
+    n = adj_in_packed.shape[0]
+    dev = dist.device
+    groups = -(-s // 32)
+    # one scratch buffer, 16-byte aligned parts: the frontier's row masks,
+    # the pending and hit masks, the work items (int4 each), their count
+    sizes = (groups * w * 32, groups * n, groups * n,
+             4 * groups * index.work_items(ITEM_WORDS), 1)
+    starts = [0]
+    for size in sizes:
+        starts.append(starts[-1] + -(-size // 4) * 4)
+    scratch = torch.empty(starts[-1], dtype=torch.int32, device=dev)
+    parts = [scratch.data_ptr() + 4 * o for o in starts[:-1]]
+    new = torch.empty(dist.shape, dtype=torch.int8, device=dev)
+    dist_out = torch.empty_like(dist)
+    _launch("dawn_packed_sweep", dev, _ptr(frontier_packed),
+            _ptr(index.offsets), _ptr(index.words), _ptr(index.values),
+            _ptr(dist), _ptr(new), _ptr(dist_out), *parts, s, n, w,
+            SHORT_WORDS, ITEM_WORDS, int(step))
+    return new, dist_out
 
 
 def packed_push_sweep(frontier_packed: torch.Tensor,
                       adj_in_packed: torch.Tensor, dist: torch.Tensor, step,
-                      *, bs: int = 128, bn: int = 128, wk: int = 128):
+                      *, bs: int = 128, bn: int = 128, wk: int = 128,
+                      index: Optional[common.WordIndex] = None):
     """Bit-packed push sweep (K1).  frontier_packed (S, W) int32 words,
     adj_in_packed (n, W) int32 words (row j = packed in-neighbours of j),
     dist (S, n) int32.  S % bs == 0, n % bn == 0, W % wk == 0.  Tiles
     whose frontier word block (f_occ) or unreached set (o_occ) is empty
-    are skipped."""
-    s, n, w = _check_packed(frontier_packed, adj_in_packed, dist, bs, bn, wk)
-    gi, gj, gk = s // bs, n // bn, w // wk
-    f_occ = common.block_any(frontier_packed != 0, gi, bs, gk, wk)
-    o_occ = common.block_any(dist < 0, gi, bs, gj, bn)
+    are skipped: the plain version applies the (bs, wk) and (bs, bn)
+    tables; the kernel skips each column with no unreached row and needs
+    no f_occ (an all-zero frontier block sets no bit, so it hits nothing).
+    ``index`` is ``adj_in_packed``'s live-word index
+    (:func:`packed_live_words`), which the kernel reads instead of the
+    operand; without it the wrapper builds it, on the card only (the
+    plain version takes none)."""
+    s, n, w = _check_packed(frontier_packed, adj_in_packed, dist, bs, bn, wk,
+                            index)
     if not dist.is_cuda:
-        return ref.packed_push_ref(frontier_packed, adj_in_packed, dist,
-                                   step, f_occ=f_occ, o_occ=o_occ)
-    new, dist_out = _packed_outputs(frontier_packed, adj_in_packed, dist)
-    rows = common.tile_rows(bs, 32)
-    _launch("dawn_packed_push_sweep", dist.device, _ptr(frontier_packed),
-            _ptr(adj_in_packed), _ptr(dist), _ptr(new), _ptr(dist_out),
-            _ptr(f_occ.contiguous()), _ptr(o_occ.contiguous()),
-            s, n, w, rows, bs, bn, wk, int(step))
+        gi, gj, gk = s // bs, n // bn, w // wk
+        return ref.packed_push_ref(
+            frontier_packed, adj_in_packed, dist, step,
+            f_occ=common.block_any(frontier_packed != 0, gi, bs, gk, wk),
+            o_occ=common.block_any(dist < 0, gi, bs, gj, bn))
+    out = _packed_launch(frontier_packed, adj_in_packed, dist, step, index)
     packed_push_sweep.launches += 1
-    return new, dist_out
+    return out
 
 
 def packed_pull_sweep(frontier_packed: torch.Tensor,
                       adj_in_packed: torch.Tensor, dist: torch.Tensor, step,
-                      *, bs: int = 8, bn: int = 128, wk: int = 128):
-    """Bit-packed pull sweep (K2).  Same operands and word math as
-    :func:`packed_push_sweep`, no occupancy gating.  S % bs == 0,
-    n % bn == 0, W % wk == 0."""
-    s, n, w = _check_packed(frontier_packed, adj_in_packed, dist, bs, bn, wk)
+                      *, bs: int = 8, bn: int = 128, wk: int = 128,
+                      index: Optional[common.WordIndex] = None):
+    """Bit-packed pull sweep (K2).  Same operands, word math and
+    ``index`` as :func:`packed_push_sweep`, no occupancy gating.
+    S % bs == 0, n % bn == 0, W % wk == 0."""
+    s, n, w = _check_packed(frontier_packed, adj_in_packed, dist, bs, bn, wk,
+                            index)
     if not dist.is_cuda:
         return ref.packed_pull_ref(frontier_packed, adj_in_packed, dist, step)
-    new, dist_out = _packed_outputs(frontier_packed, adj_in_packed, dist)
-    rows = common.tile_rows(bs, 32)
-    _launch("dawn_packed_pull_sweep", dist.device, _ptr(frontier_packed),
-            _ptr(adj_in_packed), _ptr(dist), _ptr(new), _ptr(dist_out),
-            s, n, w, rows, bs, bn, int(step))
+    out = _packed_launch(frontier_packed, adj_in_packed, dist, step, index)
     packed_pull_sweep.launches += 1
-    return new, dist_out
+    return out
 
 
 # --------------------------------------------------------------------------

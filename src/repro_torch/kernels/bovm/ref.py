@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..common import expand_table
+from ..common import WordIndex, expand_table, word_index_ref
 
 # bound on one chunk's broadcast intermediate, in elements
 _CHUNK_ELEMS = 1 << 25
@@ -32,6 +32,19 @@ def _epilogue(hits: torch.Tensor, dist: torch.Tensor, step: int,
         new &= expand_table(o_occ, *dist.shape)
     return new.to(torch.int8), torch.where(new, torch.tensor(
         int(step), dtype=dist.dtype, device=dist.device), dist)
+
+
+def packed_live_words_ref(adj_in_packed: torch.Tensor) -> WordIndex:
+    """The live-word index of an (n, W) packed operand: per row j, the
+    ascending positions of its non-zero words and, in ``values``, the
+    words themselves (a packed CSC)."""
+    index = word_index_ref(adj_in_packed, 1, lambda blk: blk != 0)
+    n, w = adj_in_packed.shape
+    rows = torch.repeat_interleave(
+        torch.arange(n, device=adj_in_packed.device),
+        index.offsets.diff().long())
+    values = adj_in_packed.reshape(-1)[rows * w + index.words.long()]
+    return index._replace(values=values)
 
 
 def word_hits(frontier_packed: torch.Tensor,

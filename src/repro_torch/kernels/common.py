@@ -66,17 +66,27 @@ def lane_offsets(src_idx: torch.Tensor, n_pad: int) -> torch.Tensor:
 
 
 class WordIndex(NamedTuple):
-    """Per-row compacted list of an operand's live 16-byte words.
+    """Per-row compacted list of an operand's live words.
 
     Row k's live words are ``words[offsets[k]:offsets[k + 1]]``, in
-    ascending order; word ``w`` covers bytes ``16 w .. 16 w + 15`` of the
-    row (16 int8 columns, 4 float32 columns).  A word is live when it
-    holds a non-zero byte (counting) or a finite weight (tropical).  The
-    index is derived from the operand alone; it changes which words a
+    ascending order.  A word is a fixed run of a row's bytes, live when
+    it holds a non-zero entry:
+
+      * 16 bytes of a dense operand (16 int8 or 4 float32 columns; word
+        ``w`` covers bytes ``16 w .. 16 w + 15``), live where it holds a
+        non-zero byte (counting, K6) or a finite weight (tropical, K7);
+      * 4 bytes of the bit-packed operand (one uint32, 32 source nodes of
+        target column k), live where it is non-zero (boolean, K1 / K2).
+        There ``values`` carries each listed word's bits beside its
+        position, so the index is a packed CSC of the operand and the
+        kernels that read it never touch the operand itself.
+
+    The index is derived from the operand alone; it changes which words a
     kernel reads, never what it computes."""
     offsets: torch.Tensor    # (k + 1,) int32
-    words: torch.Tensor      # (offsets[-1],) int32
+    words: torch.Tensor      # (offsets[-1],) int32 positions
     rows_live: int           # rows holding at least one live word
+    values: Optional[torch.Tensor] = None  # (offsets[-1],) int32, or None
 
     def work_items(self, chunk: int) -> int:
         """Upper bound on sum_k ceil(len_k / chunk), the work items one
@@ -120,7 +130,7 @@ def word_index_ref(operand: torch.Tensor, per_word: int,
     k, n = operand.shape
     if n % per_word:
         raise ValueError(f"row length {n} is not a multiple of the "
-                         f"{per_word} elements of a 16-byte word")
+                         f"{per_word} elements of a word")
     rows = max(1, _INDEX_CHUNK_BYTES // max(n * operand.element_size(), 1))
     counts, words = [], []
     for r0 in range(0, k, rows):
@@ -136,35 +146,53 @@ def word_index_ref(operand: torch.Tensor, per_word: int,
     return WordIndex(offsets, words, rows_live)
 
 
-def build_word_index(lib: ctypes.CDLL, name: str,
-                     operand: torch.Tensor) -> WordIndex:
+def build_word_index(lib: ctypes.CDLL, name: str, operand: torch.Tensor,
+                     *, with_values: bool = False) -> WordIndex:
     """Build the live-word index of a (k, n) operand on the card with C
-    entry point ``name`` of ``lib``, ``(operand, offsets, out, k, n)``:
-    a count pass (offsets null: out = words per row), the prefix sum of
-    the counts, then a fill pass (out = the word list)."""
+    entry point ``name`` of ``lib``, ``(operand, offsets, out[, values],
+    k, n)``: a count pass (offsets null: out = words per row), the prefix
+    sum of the counts, then a fill pass (out = the word list, and with
+    ``with_values`` the words' values)."""
     k, n = operand.shape
     dev = operand.device
     counts = torch.empty(k, dtype=torch.int32, device=dev)
-    launch(lib, name, dev, operand.data_ptr(), None, counts.data_ptr(), k, n)
+    launch(lib, name, dev, operand.data_ptr(), None, counts.data_ptr(),
+           *((None,) if with_values else ()), k, n)
     offsets, total, rows_live = index_from_counts(counts)
     words = torch.empty(max(total, 1), dtype=torch.int32, device=dev)
+    values = torch.empty_like(words) if with_values else None
     launch(lib, name, dev, operand.data_ptr(), offsets.data_ptr(),
-           words.data_ptr(), k, n)
-    return WordIndex(offsets, words[:total], rows_live)
+           words.data_ptr(), *((values.data_ptr(),) if with_values else ()),
+           k, n)
+    return WordIndex(offsets, words[:total], rows_live,
+                     values[:total] if with_values else None)
 
 
-def check_index(index: WordIndex, rows: int, device) -> None:
+def check_index(index: WordIndex, rows: int, device, *,
+                values: bool = False) -> None:
     """The index a kernel wrapper was handed fits its operand's rows and
-    device."""
+    device: int32 offsets of shape (rows + 1,), int32 words and, where
+    ``values`` is asked for, int32 values beside them.  On the card the
+    tensors must also meet :func:`check_cuda`'s contract."""
     if index.offsets.shape != (rows + 1,):
         raise ValueError(f"index: offsets of shape "
                          f"{tuple(index.offsets.shape)}, expected "
                          f"({rows + 1},)")
-    check_cuda(offsets=(index.offsets, torch.int32),
-               words=(index.words, torch.int32))
-    if index.offsets.device != device:
-        raise ValueError(f"index: on {index.offsets.device}, expected "
-                         f"{device}")
+    parts = {"offsets": index.offsets, "words": index.words}
+    if values:
+        if index.values is None or index.values.shape != index.words.shape:
+            raise ValueError("index: expected a value beside each listed "
+                             "word")
+        parts["values"] = index.values
+    for name, t in parts.items():
+        if t.dtype != torch.int32 or t.dim() != 1:
+            raise ValueError(f"index: {name} must be 1-d int32, got "
+                             f"{t.dtype} of shape {tuple(t.shape)}")
+        if t.device != torch.device(device):
+            raise ValueError(f"index: {name} on {t.device}, expected "
+                             f"{device}")
+    if torch.device(device).type == "cuda":
+        check_cuda(**{k: (t, torch.int32) for k, t in parts.items()})
 
 
 def check_push_tiles(s: int, n: int, bs: int, bn: int, bk: int,

@@ -15,6 +15,8 @@ from repro.kernels.bovm import (fused_boolean_multisweep as j_fused_multi,
                                 packed_push_sweep as j_push)
 from repro_torch.core import pack_bits as tpack
 from repro_torch.core import resolve_fused_steps
+from repro_torch.graph import generators as tgen
+from repro_torch.graph.csr import CSRGraph
 from repro_torch.kernels import common, registry
 from repro_torch.kernels import bovm
 
@@ -250,6 +252,130 @@ def test_wrappers_check_tiles_and_count_no_cpu_launch():
         bovm.packed_pull_sweep(f, at[:64], d, 1, bs=8, bn=64, wk=4)
     bovm.packed_pull_sweep(f, at, d, 1, bs=8, bn=128, wk=4)
     assert bovm.packed_pull_sweep.launches == 0       # plain version
+
+
+# --------------------------------------------------------------------------
+# the live-word index of the packed operand (read by K1 / K2 on the card)
+# --------------------------------------------------------------------------
+
+def _index_graph(kind):
+    if kind == "rmat":
+        return tgen.rmat(8, 6, directed=True, seed=5, device="cpu")
+    if kind == "grid":
+        return tgen.grid2d(12, 12, device="cpu")
+    if kind == "hub":                      # column 0 hears from 299 nodes
+        src = np.arange(1, 300)
+        return CSRGraph.from_edges(src, np.zeros_like(src), 300,
+                                   device="cpu")
+    if kind == "isolated_padded":          # 200 nodes padded to 256
+        return CSRGraph.from_edges(np.array([0, 7, 150, 31, 32]),
+                                   np.array([5, 100, 199, 33, 33]), 200,
+                                   device="cpu")
+    return CSRGraph.from_edges(np.zeros(0, np.int64), np.zeros(0, np.int64),
+                               300, device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["rmat", "grid", "hub", "isolated_padded",
+                                  "empty"])
+def test_packed_index_matches_numpy(kind):
+    """The plain builder of the packed operand's index against a numpy
+    build: per column, the positions and values of its non-zero words."""
+    g = _index_graph(kind)
+    n = g.n_padded()
+    adj = g.to_dense_padded(n).numpy() != 0
+    at = np.ascontiguousarray(np.packbits(adj.T, axis=1,
+                                          bitorder="little")).view("<u4")
+    np.testing.assert_array_equal(g.to_pull_packed(n).numpy().view("<u4"),
+                                  at)
+    rows, cols = np.nonzero(at)
+    idx = bovm.packed_live_words(g.to_pull_packed(n))
+    counts = np.bincount(rows, minlength=n)
+    np.testing.assert_array_equal(idx.offsets.numpy(),
+                                  np.concatenate([[0], np.cumsum(counts)]))
+    np.testing.assert_array_equal(idx.words.numpy(), cols)
+    np.testing.assert_array_equal(idx.values.numpy().view("<u4"),
+                                  at[rows, cols])
+    assert idx.rows_live == int((counts > 0).sum())
+    assert idx.offsets.dtype == idx.words.dtype == idx.values.dtype == \
+        torch.int32
+    assert bovm.packed_live_words.launches == 0       # plain version
+
+
+def test_registry_boolean_operand_index():
+    assert registry.get("boolean").operand_index is bovm.packed_live_words
+
+
+@pytest.mark.parametrize("s,n,bs,bn,wk", [
+    (128, 256, 128, 128, 8),
+    (64, 512, 64, 128, 16),
+    (8, 128, 8, 128, 4),
+    (256, 384, 128, 128, 4),
+])
+def test_packed_push_with_index_matches_jax(s, n, bs, bn, wk):
+    """K1 handed its operand's live-word index (which the plain version
+    does not read) still equals the Pallas kernel."""
+    rng = np.random.default_rng(3 * s + n)
+    g = jgen.erdos_renyi(n, 5.0, seed=n + 2, directed=True)
+    ap = pack_adjacency_pull(jnp.asarray(np.asarray(g.to_dense_padded(n))))
+    f, dist = _state(rng, s, n)
+    fp = jpack(jnp.asarray(f) > 0)
+    want = j_push(fp, ap, jnp.asarray(dist), 3, bs=bs, bn=bn, wk=wk,
+                  interpret=True)
+    index = bovm.packed_live_words(_words(ap))
+    got = bovm.packed_push_sweep(_words(fp), _words(ap), _t(dist), 3,
+                                 bs=bs, bn=bn, wk=wk, index=index)
+    _eq(want, got)
+
+
+@pytest.mark.parametrize("s,n,bs,bn,wk", [
+    (8, 256, 8, 128, 8),
+    (16, 512, 8, 128, 16),
+    (32, 128, 16, 128, 4),
+])
+def test_packed_pull_with_index_matches_jax(s, n, bs, bn, wk):
+    rng = np.random.default_rng(s + n)
+    g = jgen.erdos_renyi(n, 5.0, seed=n + 1, directed=True)
+    ap = pack_adjacency_pull(jnp.asarray(np.asarray(g.to_dense_padded(n))))
+    f, dist = _state(rng, s, n)
+    fp = jpack(jnp.asarray(f) > 0)
+    want = j_pull(fp, ap, jnp.asarray(dist), 3, bs=bs, bn=bn, wk=wk,
+                  interpret=True)
+    index = bovm.packed_live_words(_words(ap))
+    got = bovm.packed_pull_sweep(_words(fp), _words(ap), _t(dist), 3,
+                                 bs=bs, bn=bn, wk=wk, index=index)
+    _eq(want, got)
+
+
+def _malformed(index, kind):
+    if kind == "other_operand":
+        return bovm.packed_live_words(torch.zeros((256, 8),
+                                                  dtype=torch.int32))
+    if kind == "no_values":
+        return index._replace(values=None)
+    if kind == "short_values":
+        return index._replace(values=index.values[:-1])
+    if kind == "int64_words":
+        return index._replace(words=index.words.long())
+    return index._replace(offsets=index.offsets[None])
+
+
+@pytest.mark.parametrize("kind", ["other_operand", "no_values",
+                                  "short_values", "int64_words",
+                                  "2d_offsets"])
+@pytest.mark.parametrize("wrapper", ["push", "pull"])
+def test_packed_wrappers_reject_malformed_index(kind, wrapper):
+    g = tgen.erdos_renyi(120, 4.0, seed=1, device="cpu")
+    at = g.to_pull_packed(128)
+    fp = torch.zeros((8, 4), dtype=torch.int32)
+    d = torch.full((8, 128), -1, dtype=torch.int32)
+    kern = bovm.packed_push_sweep if wrapper == "push" else \
+        bovm.packed_pull_sweep
+    bad = _malformed(bovm.packed_live_words(at), kind)
+    with pytest.raises(ValueError, match="index"):
+        kern(fp, at, d, 1, bs=8, bn=128, wk=4, index=bad)
+    # the well-formed index is taken
+    kern(fp, at, d, 1, bs=8, bn=128, wk=4,
+         index=bovm.packed_live_words(at))
 
 
 # --------------------------------------------------------------------------

@@ -60,6 +60,97 @@ def test_packed_kernels_match_plain(cuda, s, n, bs, wk):
     _same(want, got)
 
 
+def _packed_graph(kind):
+    """Graphs for the packed kernels' index walk: a hub column with 1,000
+    in-neighbours over 32 words (more than one work item), isolated and
+    padded columns, in-neighbours that straddle word boundaries (node j
+    hears from j - 1 and j + 1 and from 31 / 32 / 33 past it), a grid, an
+    RMAT graph and an edgeless one."""
+    if kind == "hub":
+        src = np.arange(1, 1001)
+        return CSRGraph.from_edges(src, np.zeros_like(src), 1100,
+                                   device="cpu")
+    if kind == "straddle":
+        j = np.arange(40, 1000)
+        src = np.concatenate([j - 1, j + 1, j - 31, j - 32, j - 33])
+        dst = np.concatenate([j] * 5)
+        return CSRGraph.from_edges(src, dst, 1024, device="cpu")
+    if kind == "grid":
+        return gen.grid2d(30, 30, device="cpu")
+    if kind == "rmat":
+        return gen.rmat(10, 8, directed=True, seed=4, device="cpu")
+    if kind == "empty":
+        return CSRGraph.from_edges(np.zeros(0, np.int64),
+                                   np.zeros(0, np.int64), 300, device="cpu")
+    return gen.erdos_renyi(1500, 6.0, seed=7, device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["hub", "straddle", "grid", "rmat",
+                                  "empty", "er"])
+def test_packed_index_kernel_matches_plain(cuda, kind):
+    """The packed operand's live-word index built on the card equals its
+    plain version: offsets, positions, values and live rows."""
+    g = _packed_graph(kind)
+    at = g.to_pull_packed(g.n_padded())
+    want = bovm.packed_live_words(at)
+    before = bovm.packed_live_words.launches
+    got = bovm.packed_live_words(at.to(cuda))
+    torch.cuda.synchronize()
+    assert bovm.packed_live_words.launches == before + 1
+    assert torch.equal(want.offsets, got.offsets.cpu())
+    assert torch.equal(want.words, got.words.cpu())
+    assert torch.equal(want.values, got.values.cpu())
+    assert want.rows_live == got.rows_live
+
+
+@pytest.mark.parametrize("kind,s,short,item", [
+    ("hub", 40, 16, 64), ("hub", 128, 0, 8), ("straddle", 8, 16, 64),
+    ("straddle", 72, 0, 3), ("grid", 128, 16, 64), ("grid", 40, 0, 1),
+    ("rmat", 40, 4, 64), ("rmat", 256, 0, 5), ("empty", 16, 16, 64),
+    ("er", 96, 2, 1)])
+def test_packed_kernels_with_index_match_plain(cuda, monkeypatch, kind, s,
+                                               short, item):
+    """K1 and K2 walking the index (columns of at most ``short`` entries a
+    thread each, longer ones in items of ``item`` entries a warp each;
+    with a prepared index and building their own) from the sources sweep
+    by sweep: bit-identical to the plain versions.  S = 8, 40, 72 and 96
+    leave rows past S in the last 32-row group."""
+    monkeypatch.setattr(bovm.kernel, "SHORT_WORDS", short)
+    monkeypatch.setattr(bovm.kernel, "ITEM_WORDS", item)
+    g = _packed_graph(kind)
+    n = g.n_padded()
+    at = g.to_pull_packed(n)
+    index = bovm.packed_live_words(at.to(cuda))
+    rng = np.random.default_rng(s + n)
+    src = torch.from_numpy(rng.choice(g.n_nodes, s, replace=s > g.n_nodes))
+    f = torch.zeros((s, n), dtype=torch.int8)
+    f[torch.arange(s), src] = 1
+    d = torch.where(f != 0, 0, -1).to(torch.int32)
+    d[:, g.n_nodes:] = 0
+    bs = 8 if s % 16 else 16
+    before = (bovm.packed_push_sweep.launches,
+              bovm.packed_pull_sweep.launches)
+    for step in range(1, 5):
+        fp = pack_bits(f)
+        want = bovm.packed_push_sweep(fp, at, d, step, bs=bs, bn=128, wk=4)
+        kw = dict(index=index if step % 2 else None)
+        got = bovm.packed_push_sweep(fp.to(cuda), at.to(cuda), d.to(cuda),
+                                     step, bs=bs, bn=128, wk=4, **kw)
+        torch.cuda.synchronize()
+        _same(want, got)
+        got = bovm.packed_pull_sweep(fp.to(cuda), at.to(cuda), d.to(cuda),
+                                     step, bs=8, bn=128, wk=4, **kw)
+        torch.cuda.synchronize()
+        _same(want, got)
+        f, d = want
+    assert bovm.packed_push_sweep.launches == before[0] + 4
+    assert bovm.packed_pull_sweep.launches == before[1] + 4
+    with pytest.raises(ValueError, match="index"):
+        bovm.packed_pull_sweep(fp.to(cuda), at.to(cuda), d.to(cuda), 5,
+                               bs=8, bn=128, wk=4,
+                               index=index._replace(values=None))
+
+
 def _fused_graph(kind):
     if kind == "ws":                       # n_pad 512: 16 words
         return gen.watts_strogatz(500, 6, 0.05, seed=3, device="cpu")
@@ -156,6 +247,22 @@ def test_engine_on_card_matches_cpu(cuda, opts):
     assert torch.equal(want.dist, got.dist.cpu())
     assert want.sweeps == got.sweeps
     assert torch.equal(want.direction_counts, got.direction_counts)
+
+
+@pytest.mark.parametrize("mode", ["push", "pull"])
+def test_engine_reads_pull_index_on_card_only(cuda, mode):
+    """The per-sweep kernel path builds the packed operand's live-word
+    index for the card's K1 / K2, and never for the plain versions."""
+    g = gen.rmat(10, 8, directed=False, seed=2, device="cpu")
+    sources = np.arange(0, 1024, 5)
+    cfg = EngineConfig(use_kernel=True, mode=mode)
+    cpu_pg, card_pg = prepare_graph(g, device="cpu"), prepare_graph(
+        g, device=cuda)
+    want = apsp_engine(cpu_pg, sources, config=cfg)
+    got = apsp_engine(card_pg, sources, config=cfg)
+    assert cpu_pg._adj_pull_index is None
+    assert card_pg._adj_pull_index is not None
+    assert torch.equal(want.dist, got.dist.cpu())
 
 
 # --------------------------------------------------------------------------

@@ -184,6 +184,36 @@ def test_bench_apsp_quick_sweeps(family):
     assert torch.equal(per_sweep.dist, fused.dist)
 
 
+def test_adj_pull_index_built_once_and_reused(monkeypatch):
+    """The packed operand's live-word index is built once per prepared
+    graph and then reused.  On the CPU the engine never builds it, on any
+    path (the plain K1 / K2 versions take none), and its results stay
+    those of the JAX engine."""
+    from repro_torch.kernels.bovm import ref as bref
+    calls = []
+    build = bref.packed_live_words_ref
+    monkeypatch.setattr(bref, "packed_live_words_ref",
+                        lambda at: calls.append(1) or build(at))
+    src, dst, n = FAMILIES["random_ragged"]
+    jg = JCSR.from_edges(src, dst, n)
+    pg = teng.prepare_graph(carry(jg), device="cpu")
+    sources = np.arange(n, dtype=np.int32)[:40]
+    for kw in (dict(mode="sparse"), dict(mode="push", fused_steps=-1),
+               dict(mode="auto", dynamic=False)):
+        teng.apsp_engine(pg, sources, config=teng.EngineConfig(
+            use_kernel=True, source_batch=32, **kw))
+    for mode in ("push", "pull"):
+        kw = dict(mode=mode, use_kernel=True, source_batch=32)
+        rt = teng.apsp_engine(pg, sources, config=teng.EngineConfig(**kw))
+        rj = jeng.apsp_engine(jg, sources, config=jeng.EngineConfig(**kw))
+        assert_same(rj, rt)
+    assert calls == [] and pg._adj_pull_index is None
+    assert pg.adj_pull_index is pg.adj_pull_index
+    assert calls == [1]
+    assert torch.equal(pg.adj_pull_index.values,
+                       build(pg.adj_pull).values)
+
+
 def test_engine_blocks_stream_and_validate():
     g = tgen.grid2d(6, 6, device="cpu")
     blocks = list(teng.apsp_engine_blocks(g, range(20),
