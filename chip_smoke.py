@@ -17,7 +17,7 @@ against scipy's Dijkstra and a float32 Bellman-Ford replay on the host,
 and holds every kernel bit-identical to its plain PyTorch version at
 full width: on rmat16 after 2 sweeps, and K1-K3 and K9 also on grid256's
 thin frontier after 200 sweeps, where most of their launches run; the
-three live-word index builders that K1 / K2, K6 and K7 read
+three live-word index builders that K1 / K2, K5 / K6 and K7 / K8 read
 (``packed_live_words`` on both graphs' packed operands, ``nonzero_words``,
 ``finite_words`` on the rmat16 operands) are timed and held to their
 plain versions (phase ``index``).  K1 and K2 also carry ``device_ms``,
@@ -92,7 +92,8 @@ REPLACES = {
     "fused_minplus_sweep": "src/repro/kernels/tropical/kernel.py:128",
     "fused_minplus_multisweep": "src/repro/kernels/tropical/kernel.py:210",
     "sparse_relax_sweep": "src/repro/kernels/tropical/kernel.py:302",
-    # the live-word index builders serve the ports of K1 / K2, K6 and K7
+    # the live-word index builders serve the ports of K1 / K2, K5 / K6
+    # and K7 / K8
     "packed_live_words": "src/repro/kernels/bovm/kernel.py:184",
     "nonzero_words": "src/repro/kernels/counting/kernel.py:184",
     "finite_words": "src/repro/kernels/tropical/kernel.py:128",
@@ -399,8 +400,7 @@ def main() -> int:
     for run, opts in cruns.items():
         h = repro_torch.prepare(g, **opts)
         h.prepared().adj                     # operand build = set-up
-        if run == "fused":
-            h.prepared().adj_index           # K6's live-word index, too
+        h.prepared().adj_index               # K5 / K6's live-word index, too
         before = [k.launches for k in ckernels]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -419,12 +419,16 @@ def main() -> int:
             raise AssertionError(f"counting/{run}: sigma differs from the "
                                  f"float64 host count")
         cres[run] = res
+        got = tally(by_graph, "rmat16", ckernels, before)
         emit(phase="counting", graph="rmat16", run=run, options=opts,
              seconds=wall, sweeps=res.sweeps,
              direction_counts=res.direction_counts.tolist(),
              max_sigma=max_sigma, sigma_exact_below=EXACT_F32,
-             launches=tally(by_graph, "rmat16", ckernels, before),
+             launches=got, index_launches=got["nonzero_words"],
              dist_sigma_checked_rows=int(len(check)))
+        if got["nonzero_words"]:
+            raise AssertionError(f"counting/{run}: the live-word index was "
+                                 f"rebuilt during the run")
         del h
     base = cres["default"]
     for run in ("push", "fused"):
@@ -526,8 +530,8 @@ def main() -> int:
             h = repro_torch.prepare(g, weights=lanes, **opts)
             if run != "sparse":
                 h.prepared_weighted().wdense     # operand build = set-up
-            if run in ("default", "dense"):
-                h.prepared_weighted().wdense_index   # K7's index, too
+            if run != "sparse":                  # K7 / K8's index, too
+                h.prepared_weighted().wdense_index
             before = [k.launches for k in wkernels]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -544,13 +548,18 @@ def main() -> int:
                 raise AssertionError(f"weighted/{name}/{run}: "
                                      f"edges_touched")
             wres[run] = res
+            got = tally(by_graph, name, wkernels, before)
             emit(phase="weighted", graph=name, run=run, options=opts,
                  sources=int(len(wsrcs)), seconds=wall,
                  sweeps=res.sweeps,
                  direction_counts=res.direction_counts.tolist(),
                  edges_touched=float(res.edges_touched),
-                 launches=tally(by_graph, name, wkernels, before),
+                 launches=got, index_launches=got["finite_words"],
                  dist_checked_rows=int(len(check)))
+            if got["finite_words"]:
+                raise AssertionError(f"weighted/{name}/{run}: the "
+                                     f"live-word index was rebuilt during "
+                                     f"the run")
         base = wres["default"]
         for run, r in wres.items():
             if not torch.equal(r.dist, base.dist):
@@ -901,16 +910,21 @@ def main() -> int:
         adds = float(((f_[:, lane_src] != 0) & (d_[:, lane_dst] < 0)).sum())
         return sectors * 32, adds, old
 
-    def tile_bytes(f_, d_):
-        """Operand bytes of the live (k-block, column-tile) pairs at the
-        kernel's 128 x 128 tiles: the K5 tile skip's own count."""
-        f_occ = common.block_any(f_ != 0, 1, s, n_pad // bk, bk)
-        o_occ = common.block_any(d_ < 0, 1, s, n_pad // 128, 128)
-        return int(f_occ.sum()) * int(o_occ.sum()) * bk * 128
+    # K5 and K6 read the operand's live-word index, built at set-up
+    cidx = index_row("nonzero_words", lambda: counting.nonzero_words(adj),
+                     lambda: CR.nonzero_words_ref(adj), adj, 16)
+
+    def listed_bytes(f_):
+        """Bytes of the live words the index lists for the operand rows
+        in any row's frontier: what the K5 / K6 push reads of the
+        operand, once per group of 32 rows."""
+        act = ((f_ != 0).any(dim=0)).nonzero().flatten()
+        off = cidx.offsets.long()
+        return 16 * int((off[act + 1] - off[act]).sum())
 
     def k5():
         return counting.fused_counting_sweep(fs, adj, cd, csg, step, bs=128,
-                                             bn=128, bk=bk)
+                                             bn=128, bk=bk, index=cidx)
 
     def k5_plain():
         return CR.counting_sweep_ref(fs, adj, cd, csg, step)
@@ -922,11 +936,8 @@ def main() -> int:
     record("fused_counting_sweep", rmat_state, k5, k5_plain, k5(),
            k5_plain(),
            s * n_pad * 21 + b5, o5, WORD_OPS_PER_S, 5, lib5,
-           tile_bytes=tile_bytes(cf, cd), max_sigma=float(csg.max()),
+           listed_bytes=listed_bytes(cf), max_sigma=float(csg.max()),
            sigma_exact_below=EXACT_F32)
-
-    cidx = index_row("nonzero_words", lambda: counting.nonzero_words(adj),
-                     lambda: CR.nonzero_words_ref(adj), adj, 16)
 
     def k6():
         return counting.fused_counting_multisweep(
@@ -1024,7 +1035,8 @@ def main() -> int:
 
     def k8():
         return tropical.fused_minplus_multisweep(f, wd, d, mid_step, n_run,
-                                                 bs=128, max_sweeps=n_run)
+                                                 bs=128, max_sweeps=n_run,
+                                                 index=widx)
 
     def k8_plain():
         return TR.fused_minplus_multisweep_ref(f, wd, d, n_run)

@@ -112,7 +112,8 @@ def _run_counting_batch(adj, src_idx, dst_idx, deg, sources: torch.Tensor,
     sigma0 = (f0 != 0).to(torch.float32)
 
     forms = S.counting_forms(adj, src_idx, dst_idx, n_pad=n_pad, s=s,
-                             bn=cfg.bn, bk=cfg.bk, use_kernel=use_kernel)
+                             bn=cfg.bn, bk=cfg.bk, use_kernel=use_kernel,
+                             index=index)
 
     choose = None
     if forced_dir is None:
@@ -140,6 +141,13 @@ def _run_counting_batch(adj, src_idx, dst_idx, deg, sources: torch.Tensor,
                         fused=fused, fused_steps=fused_steps)
 
 
+def _card_index(pg: PreparedGraph, use_kernel: bool):
+    """``adj``'s live-word index (built once per prepared graph) where the
+    push kernels run on the card; the plain versions on the CPU read
+    none, so a CPU graph never builds it."""
+    return pg.adj_index if use_kernel and pg.device.type == "cuda" else None
+
+
 def measure_counting_costs(pg: PreparedGraph, s: int,
                            cfg: CentralityConfig, *,
                            use_kernel: bool = False) -> Tuple[float, float]:
@@ -158,7 +166,8 @@ def measure_counting_costs(pg: PreparedGraph, s: int,
     sigma = (dist >= 0).to(torch.float32)
     forms = S.counting_forms(pg.adj, pg.graph.src, pg.graph.dst,
                              n_pad=n_pad, s=s, bn=cfg.bn, bk=cfg.bk,
-                             use_kernel=use_kernel)
+                             use_kernel=use_kernel,
+                             index=_card_index(pg, use_kernel))
     result = S.time_sweep_forms(forms, f, (dist, sigma))
     pg.cost_cache[key] = result
     return result
@@ -209,10 +218,11 @@ def counting_apsp_blocks(g: Union[CSRGraph, PreparedGraph],
             bs=min(B, 128)) or 0
         if fused_steps:
             forced = PUSH       # fused blocks pin the push form
-    # the dense operand only materializes when push can dispatch, its
-    # live-word index when the fused kernel does
+    # the dense operand only materializes when push can dispatch, and its
+    # live-word index when a push kernel (K5 or the fused K6) does so on
+    # the card
     adj = pg.adj if forced in (None, PUSH) else None
-    index = pg.adj_index if fused_steps else None
+    index = _card_index(pg, use_kernel) if adj is not None else None
     for lo in range(0, len(srcs), B):
         block = srcs[lo: lo + B]
         valid = len(block)

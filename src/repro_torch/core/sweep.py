@@ -338,8 +338,8 @@ def boolean_forms(adj, adj_pull, src_idx, dst_idx, *, n_pad: int, s: int,
 # --------------------------------------------------------------------------
 
 def counting_forms(adj, src_idx, dst_idx, *, n_pad: int = 0, s: int = 0,
-                   bn: int = 128, bk: int = 128,
-                   use_kernel: bool = False) -> Tuple[SweepForm, SweepForm]:
+                   bn: int = 128, bk: int = 128, use_kernel: bool = False,
+                   index=None) -> Tuple[SweepForm, SweepForm]:
     """(push, sparse) counting sweep forms.
 
     The loop state's ``dist`` slot is the PAIR ``(dist int32, sigma
@@ -359,7 +359,10 @@ def counting_forms(adj, src_idx, dst_idx, *, n_pad: int = 0, s: int = 0,
     ``adj`` is the dense int8 operand (``None`` when only sparse
     dispatches).  The reference push converts it to f32 one column chunk
     at a time (never whole); ``use_kernel`` swaps the push for the
-    counting kernel looked up in :mod:`repro_torch.kernels.registry`.
+    counting kernel looked up in :mod:`repro_torch.kernels.registry`,
+    given ``index``, the live-word index of ``adj``
+    (``PreparedGraph.adj_index``; ``None``: each launch on the card builds
+    it).
     The sparse form is a scatter-ADD: one 1-D ``index_add_`` along the
     node axis of the (n, S) transposed state.
     """
@@ -372,7 +375,7 @@ def counting_forms(adj, src_idx, dst_idx, *, n_pad: int = 0, s: int = 0,
             fs = torch.where(f != 0, sg, torch.zeros((), dtype=sg.dtype,
                                                      device=sg.device))
             new, nd, nsg = K["push"](fs, adj, d, sg, step, bs=bs, bn=bn,
-                                     bk=bk)
+                                     bk=bk, index=index)
             return new, (nd, nsg), p
     else:
         def push(f, ds, p, step):

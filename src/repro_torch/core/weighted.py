@@ -248,13 +248,21 @@ def _run_weighted_batch(wdense, src_idx, dst_idx, w_edges, deg,
     fused = None
     if fused_steps:  # resolved upstream: kernel path, dense pinned
         fused = S.fused_form("tropical", wdense, "dense", bs=bs,
-                             max_sweeps=fused_steps)
+                             max_sweeps=fused_steps, index=windex)
 
     st0 = S.make_state(f0, dist0, n_forms=2)
     return S.sweep_loop(forms, st0, max_steps=max_sweeps, deg=deg,
                         choose=choose,
                         forced_dir=0 if forced_dir is None else forced_dir,
                         fused=fused, fused_steps=fused_steps)
+
+
+def _card_index(pw: PreparedWeightedGraph, use_kernel: bool):
+    """``wdense``'s live-word index (built once per prepared graph) where
+    the dense kernels run on the card; the plain versions on the CPU read
+    none, so a CPU graph never builds it."""
+    return pw.wdense_index if use_kernel and pw.device.type == "cuda" \
+        else None
 
 
 def measure_weighted_costs(pw: PreparedWeightedGraph, s: int,
@@ -276,8 +284,7 @@ def measure_weighted_costs(pw: PreparedWeightedGraph, s: int,
     forms = S.tropical_forms(pw.wdense, pw.graph.src, pw.graph.dst,
                              pw.w_edges, n_pad=n_pad, chunk=cfg.chunk,
                              use_kernel=use_kernel, bn=cfg.bn, bk=cfg.bk,
-                             eb=cfg.eb,
-                             windex=pw.wdense_index if use_kernel else None)
+                             eb=cfg.eb, windex=_card_index(pw, use_kernel))
     result = S.time_sweep_forms(forms, f, dist)
     pw.cost_cache[key] = result
     return result
@@ -335,11 +342,10 @@ def weighted_apsp(g: Union[CSRGraph, PreparedWeightedGraph],
         if fused_steps:
             forced = DENSE      # fused blocks pin the dense form
     # only materialize the O(n_pad^2) dense operand when it can dispatch,
-    # and its live-word index when the dense kernel can (fused blocks run
-    # the multi-sweep kernel instead)
+    # and its live-word index when a dense kernel (K7 or the fused K8)
+    # does so on the card
     wdense = pw.wdense if forced in (None, DENSE) else None
-    windex = pw.wdense_index if wdense is not None and use_kernel and \
-        not fused_steps else None
+    windex = _card_index(pw, use_kernel) if wdense is not None else None
 
     rows = []
     sweeps = 0

@@ -74,7 +74,8 @@ class WordIndex(NamedTuple):
 
       * 16 bytes of a dense operand (16 int8 or 4 float32 columns; word
         ``w`` covers bytes ``16 w .. 16 w + 15``), live where it holds a
-        non-zero byte (counting, K6) or a finite weight (tropical, K7);
+        non-zero byte (counting, K5 / K6) or a finite weight (tropical,
+        K7 / K8);
       * 4 bytes of the bit-packed operand (one uint32, 32 source nodes of
         target column k), live where it is non-zero (boolean, K1 / K2).
         There ``values`` carries each listed word's bits beside its
@@ -94,7 +95,7 @@ class WordIndex(NamedTuple):
         return self.words.numel() // chunk + self.rows_live
 
     def work_list(self, rows: int, chunk: int) -> torch.Tensor:
-        """Room for the work items the K6 / K7 kernels list for ``rows``
+        """Room for the work items the K5–K8 kernels list for ``rows``
         source rows: one int4 (k, first word, group << 8 | words, row
         mask) per chunk of ``chunk`` live words of an operand row, for
         each group of 32 rows (one per lane)."""
@@ -225,14 +226,6 @@ def check_cuda(**tensors) -> None:
         if dev is not None and t.device != dev:
             raise ValueError(f"{name}: on {t.device}, expected {dev}")
         dev = t.device
-
-
-def tile_rows(bs: int, limit: int) -> int:
-    """Largest power-of-two row group <= ``limit`` that divides ``bs``."""
-    for r in (32, 16, 8, 4, 2, 1):
-        if r <= limit and bs % r == 0:
-            return r
-    return 1
 
 
 def launch(lib: ctypes.CDLL, name: str, device: torch.device, *args) -> None:

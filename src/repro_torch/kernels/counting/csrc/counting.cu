@@ -2,7 +2,7 @@
 // (shortest-path counting, Brandes stage 1).
 //
 // Two kernels, one per Pallas kernel of src/repro/kernels/counting/kernel.py,
-// and the builder of the operand's live-word index that K6 reads.  The
+// and the builder of the operand's live-word index that both read.  The
 // state is the pair (dist int32, sigma float32); the operand is the dense
 // (k, n) int8 adjacency, row k = out-neighbours of k.  Every entry point
 // is a plain C function that launches on the given stream and returns
@@ -15,108 +15,178 @@
 // significand, exact only up to 2048 paths.
 //
 // The operand is the largest input by far (n*n bytes, 4.3 GB at n =
-// 65,664) and it is almost all zeros on the graphs DAWN runs: K5 reads it
-// in 4-byte words and spends no arithmetic on a zero word; K6 reads only
-// the 16-byte words the live-word index lists.  What bounds them is how
-// much of the operand they must read.
+// 65,664) and it is almost all zeros on the graphs DAWN runs: K5 and K6
+// read only the 16-byte words the live-word index lists.  What bounds
+// them is how much of the operand they must read.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;                 // K5: 8 warps
-constexpr int kWarpCols = 128;                // K5: 4 columns per lane
-constexpr int kBlockCols = kThreads / 32 * kWarpCols;  // 1024
-constexpr int kUnrollK = 8;                   // K5: operand rows per batch
+constexpr int kListThreads = 256;             // K5 unreached bits, work list
+constexpr int kPushThreads = 256;             // K5 push
+constexpr int kEpilogueThreads = 256;         // K5 epilogue: 32 x 8
 constexpr int kFusedThreads = 512;            // K6: 2 blocks per SM
 constexpr int kIndexThreads = 256;            // live-word index: 8 rows
 
 // K5 fused_counting_sweep.
 // Replaces _counting_sweep_kernel of src/repro/kernels/counting/kernel.py.
-// Bound: bytes of the live operand tiles.  Each (row tile, k-block) pair
-// whose f_occ is set reads bk operand rows across the block's columns;
-// at a mid-BFS state almost every k-block is live, so a sweep reads most
-// of the 4.3 GB operand, and the useful adds (one per non-zero operand
-// byte and row) are few.  Design: one block per (TM source rows, 1,024
-// columns); one warp owns one 128-column output tile, so the o_occ skip
-// is warp-uniform; the TM x bk frontier-masked sigma of a live k-block
-// is staged in shared memory and read as a broadcast; each lane loads one
-// 32-bit operand word (4 columns) per k row, eight rows in flight, and
-// adds only where a byte is non-zero.  Row tiles are the fastest grid
-// index, so the blocks that read the same operand columns run together
-// and share them through L2.
-template <int TM>
-__global__ void __launch_bounds__(kThreads) counting_sweep_kernel(
+// Bound: bytes — for every operand row k in any row's frontier, the 32 B
+// sectors that hold a non-zero byte in a column with an unreached target,
+// plus the state.  The TPU kernel multiplies whole (k-block, column-tile)
+// operand tiles; at a mid-BFS state almost every k-block is live, so a
+// tiled read covers most of the 4.3 GB operand at n = 65,664 while the
+// useful adds (one per row and non-zero operand byte) are few.  So the
+// kernel reads only the 16-byte words the live-word index lists, each once
+// per group of 32 source rows, in K7's node-major design: four launches on
+// the stream.
+//   1. The unreached bits, node-major: bit b of unr_t[c, r] is dist[r,
+//      32 c + b] < 0, from one ballot per 32 columns of a row.
+//   2. The work list: one warp per 32 operand rows k (a lane each) and
+//      group of 32 source rows builds each k's mask of the group's rows
+//      with fsigma[r, k] > 0, and appends one item (k, a chunk of at most
+//      `chunk` of row k's live words, the group, the mask) per chunk.
+//   3. The push: a warp per item, one lane per source row.  The lanes load
+//      the chunk's words once (16 B each) and pass them round by shuffle;
+//      a lane whose row has k in its frontier reads the open bits of the
+//      word's 16 columns and atomically adds fsigma[r, k] * a into the
+//      candidate sum of every open column with a non-zero byte a (Thm 3.2).
+//      The unreached bits and the candidates are node-major, (n, Sp) with
+//      Sp = S rounded up to 32: the 32 lanes of a column touch one
+//      128-byte line, so a warp's test and its adds are one L2 request
+//      each instead of 32.
+//   4. The epilogue: new = cand > 0 & dist < 0, dist = step and sigma =
+//      cand there, through a 32 x 32 shared-memory tile that turns the
+//      candidates back to the (S, n) layout.
+// The kernel's own per-row tests stand in for the plain version's
+// occupancy tables: a k-block with no positive fsigma (f_occ) lists no
+// row, and a tile with no unreached target (o_occ) opens no column.  The
+// adds sum integers below 2^24, so their order does not matter.
+__global__ void __launch_bounds__(kListThreads) unreached_bits_kernel(
+    const int32_t* __restrict__ dist, uint32_t* __restrict__ unr_t, int S,
+    int Sp, int n) {
+  const int lane = threadIdx.x & 31;
+  const size_t q = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (q >= (size_t)(n >> 5) * S) return;                 // warp-uniform
+  const int c = (int)(q / S), r = (int)(q % S);
+  const uint32_t bits = __ballot_sync(
+      0xffffffffu, __ldg(dist + (size_t)r * n + 32 * c + lane) < 0);
+  if (lane == 0) unr_t[(size_t)c * Sp + r] = bits;
+}
+
+__global__ void __launch_bounds__(kListThreads) counting_items_kernel(
+    const float* __restrict__ fsigma, const int32_t* __restrict__ woff,
+    int4* __restrict__ items, int32_t* __restrict__ nitems, int S, int K,
+    int chunk) {
+  const int lane = threadIdx.x & 31;
+  const int kb32 = (K + 31) >> 5;
+  const int G = (S + 31) >> 5;
+  const int c = blockIdx.x * (kListThreads / 32) + (threadIdx.x >> 5);
+  if (c >= kb32 * G) return;                             // warp-uniform
+  const int g = c / kb32;
+  const int k = (c - g * kb32) * 32 + lane;
+  const int rows = min(32, S - 32 * g);
+  uint32_t mask = 0u;
+  if (k < K)
+    for (int rr = 0; rr < rows; ++rr)
+      if (__ldg(fsigma + (size_t)(32 * g + rr) * K + k) > 0.f)
+        mask |= 1u << rr;
+  int off = 0, len = 0, nch = 0;
+  if (mask) {
+    off = __ldg(woff + k);
+    len = __ldg(woff + k + 1) - off;
+    nch = (len + chunk - 1) / chunk;
+  }
+  int incl = nch;                                        // warp scan
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  const int wsum = __shfl_sync(0xffffffffu, incl, 31);
+  if (!wsum) return;                                     // warp-uniform
+  int base = 0;
+  if (lane == 31) base = atomicAdd(nitems, wsum);
+  base = __shfl_sync(0xffffffffu, base, 31) + incl - nch;
+  for (int q = 0; q < nch; ++q)
+    items[base + q] = make_int4(k, off + q * chunk,
+                                (g << 8) | min(chunk, len - q * chunk),
+                                (int)mask);
+}
+
+__global__ void __launch_bounds__(kPushThreads) counting_push_kernel(
     const float* __restrict__ fsigma, const int8_t* __restrict__ adj,
-    const int32_t* __restrict__ dist, const float* __restrict__ sigma,
-    int8_t* __restrict__ new_out, int32_t* __restrict__ dist_out,
-    float* __restrict__ sigma_out, const uint8_t* __restrict__ f_occ,
-    const uint8_t* __restrict__ o_occ, int n, int k, int bs, int bn, int bk,
-    int step) {
-  extern __shared__ float fs[];                          // [TM][bk]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int row0 = blockIdx.x * TM;
-  const int wcol0 = blockIdx.y * kBlockCols + warp * kWarpCols;
-  const bool in_range = wcol0 < n;
-  const int ti = row0 / bs;
-  const int gj = n / bn, gk = k / bk;
-  const bool warp_live =
-      in_range && o_occ[(size_t)ti * gj + wcol0 / bn] != 0;
-  const int col = wcol0 + lane * 4;
-
-  float acc[TM][4];
+    const int32_t* __restrict__ wlist, const uint32_t* __restrict__ unr_t,
+    const int4* __restrict__ items, const int32_t* __restrict__ nitems,
+    float* __restrict__ cand_t, int K, int n, int Sp) {
+  const int lane = threadIdx.x & 31;
+  const int gwarp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int nwarps = (gridDim.x * blockDim.x) >> 5;
+  const int ni = *nitems;
+  for (int i = gwarp; i < ni; i += nwarps) {
+    const int4 it = items[i];
+    const int k = it.x, len = it.z & 0xff, g = it.z >> 8;
+    const int r = 32 * g + lane;
+    const bool act = ((uint32_t)it.w >> lane) & 1u;
+    const float fsr = act ? __ldg(fsigma + (size_t)r * K + k) : 0.f;
+    int widx = 0;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (lane < len) {
+      widx = __ldg(wlist + it.y + lane);
+      v = __ldg(reinterpret_cast<const uint4*>(adj + (size_t)k * n) + widx);
+    }
+    for (int q = 0; q < len; ++q) {
+      const int w = __shfl_sync(0xffffffffu, widx, q);
+      const uint32_t x[4] = {__shfl_sync(0xffffffffu, v.x, q),
+                             __shfl_sync(0xffffffffu, v.y, q),
+                             __shfl_sync(0xffffffffu, v.z, q),
+                             __shfl_sync(0xffffffffu, v.w, q)};
+      if (!act) continue;
+      const uint32_t open =
+          (__ldg(unr_t + (size_t)(w >> 1) * Sp + r) >> ((w & 1) * 16)) &
+          0xffffu;
+      if (!open) continue;
 #pragma unroll
-  for (int r = 0; r < TM; ++r)
+      for (int e = 0; e < 4; ++e) {
+        if (!x[e]) continue;
 #pragma unroll
-    for (int b = 0; b < 4; ++b) acc[r][b] = 0.f;
-
-  if (__syncthreads_or(warp_live)) {
-    for (int kb = 0; kb < gk; ++kb) {
-      if (!f_occ[(size_t)ti * gk + kb]) continue;        // block-uniform
-      const int k0 = kb * bk;
-      __syncthreads();                                   // stage consumed
-      for (int i = tid; i < TM * bk; i += kThreads) {
-        const int r = i / bk, c = i % bk;
-        fs[i] = fsigma[(size_t)(row0 + r) * k + k0 + c];
-      }
-      __syncthreads();
-      if (!warp_live) continue;
-      const int8_t* a = adj + (size_t)k0 * n + col;
-      for (int kk = 0; kk < bk; kk += kUnrollK) {
-        uint32_t w[kUnrollK];
-#pragma unroll
-        for (int u = 0; u < kUnrollK; ++u)
-          w[u] = __ldg(reinterpret_cast<const uint32_t*>(
-              a + (size_t)(kk + u) * n));
-#pragma unroll
-        for (int u = 0; u < kUnrollK; ++u) {
-          if (!w[u]) continue;
-#pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            const float v = (float)(int8_t)((w[u] >> (8 * b)) & 0xffu);
-            if (v == 0.f) continue;
-#pragma unroll
-            for (int r = 0; r < TM; ++r)
-              acc[r][b] = fmaf(fs[r * bk + kk + u], v, acc[r][b]);
-          }
+        for (int b = 0; b < 4; ++b) {
+          const int bit = e * 4 + b;
+          if (!((open >> bit) & 1u)) continue;
+          const float a = (float)(int8_t)((x[e] >> (8 * b)) & 0xffu);
+          if (a == 0.f) continue;
+          atomicAdd(cand_t + (size_t)(w * 16 + bit) * Sp + r, fsr * a);
         }
       }
     }
   }
-  if (!in_range) return;
-  // epilogue: new = acc > 0 & unreached; dist = step, sigma = acc there
-#pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    const size_t idx = (size_t)(row0 + r) * n + col;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int32_t d = dist[idx + b];
-      const bool nw = acc[r][b] > 0.f && d < 0;
-      new_out[idx + b] = nw ? 1 : 0;
-      dist_out[idx + b] = nw ? step : d;
-      sigma_out[idx + b] = nw ? acc[r][b] : sigma[idx + b];
-    }
+}
+
+// K5, fourth pass: new = cand > 0 & unreached, dist = step, sigma = cand
+// there.  One block per 32 x 32 tile: the (n, Sp) candidates are read
+// along S into shared memory and written out along n, both coalesced.
+__global__ void __launch_bounds__(kEpilogueThreads) counting_epilogue_kernel(
+    const int32_t* __restrict__ dist, const float* __restrict__ sigma,
+    const float* __restrict__ cand_t, int8_t* __restrict__ new_out,
+    int32_t* __restrict__ dist_out, float* __restrict__ sigma_out, int S,
+    int Sp, int n, int step) {
+  __shared__ float tile[32][33];
+  const int j0 = blockIdx.x * 32, r0 = blockIdx.y * 32;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int i = ty; i < 32; i += kEpilogueThreads / 32)
+    tile[i][tx] = cand_t[(size_t)(j0 + i) * Sp + r0 + tx];
+  __syncthreads();
+  for (int i = ty; i < 32; i += kEpilogueThreads / 32) {
+    const int r = r0 + i;
+    if (r >= S) break;
+    const size_t idx = (size_t)r * n + j0 + tx;
+    const float c = tile[tx][i];
+    const int32_t d = dist[idx];
+    const bool nw = c > 0.f && d < 0;
+    new_out[idx] = nw ? 1 : 0;
+    dist_out[idx] = nw ? step : d;
+    sigma_out[idx] = nw ? c : sigma[idx];
   }
 }
 
@@ -372,70 +442,57 @@ __global__ void __launch_bounds__(kFusedThreads, 2) fused_counting_kernel(
   }
 }
 
-template <typename K>
-cudaError_t set_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
-template <int TM>
-int launch_counting(const void* fs, const void* adj, const void* dist,
-                    const void* sigma, void* new_out, void* dist_out,
-                    void* sigma_out, const void* f_occ, const void* o_occ,
-                    int S, int n, int k, int bs, int bn, int bk, int step,
-                    cudaStream_t stream) {
-  const size_t smem = sizeof(float) * TM * bk;
-  cudaError_t err = set_smem(counting_sweep_kernel<TM>, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(S / TM, (n + kBlockCols - 1) / kBlockCols);
-  counting_sweep_kernel<TM><<<grid, kThreads, smem, stream>>>(
-      (const float*)fs, (const int8_t*)adj, (const int32_t*)dist,
-      (const float*)sigma, (int8_t*)new_out, (int32_t*)dist_out,
-      (float*)sigma_out, (const uint8_t*)f_occ, (const uint8_t*)o_occ, n, k,
-      bs, bn, bk, step);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
-// `tm` source rows per block (16, 8, 4, 2 or 1, dividing bs); bn a
-// multiple of 128, bk a multiple of 8.
-int dawn_counting_sweep(const void* fs, const void* adj, const void* dist,
+// K5.  n a multiple of 32; woff / wlist: the live-word index of adj (k
+// rows); `chunk` live words per work item (1..32); unr_t: (n / 32, Sp)
+// uint32 scratch, Sp = S rounded up to 32; items: room for (Sp / 32) x
+// (the index's work items at `chunk`) int4; nitems: one int32, zeroed;
+// cand_t: (n, Sp) float32, zeroed; `blocks_per_sm` push blocks per SM.
+int dawn_counting_sweep(const void* fsigma, const void* adj, const void* woff,
+                        const void* wlist, const void* dist,
                         const void* sigma, void* new_out, void* dist_out,
-                        void* sigma_out, const void* f_occ, const void* o_occ,
-                        int S, int n, int k, int tm, int bs, int bn, int bk,
-                        int step, void* stream) {
-  if (bn % kWarpCols || bk % kUnrollK || bs % tm || S % tm)
+                        void* sigma_out, void* unr_t, void* items,
+                        void* nitems, void* cand_t, int S, int n, int k,
+                        int chunk, int blocks_per_sm, int step,
+                        void* stream) {
+  if (S < 1 || k < 1 || n < 32 || n % 32 || chunk < 1 || chunk > 32 ||
+      blocks_per_sm < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (tm) {
-    case 16:
-      return launch_counting<16>(fs, adj, dist, sigma, new_out, dist_out,
-                                 sigma_out, f_occ, o_occ, S, n, k, bs, bn, bk,
-                                 step, st);
-    case 8:
-      return launch_counting<8>(fs, adj, dist, sigma, new_out, dist_out,
-                                sigma_out, f_occ, o_occ, S, n, k, bs, bn, bk,
-                                step, st);
-    case 4:
-      return launch_counting<4>(fs, adj, dist, sigma, new_out, dist_out,
-                                sigma_out, f_occ, o_occ, S, n, k, bs, bn, bk,
-                                step, st);
-    case 2:
-      return launch_counting<2>(fs, adj, dist, sigma, new_out, dist_out,
-                                sigma_out, f_occ, o_occ, S, n, k, bs, bn, bk,
-                                step, st);
-    case 1:
-      return launch_counting<1>(fs, adj, dist, sigma, new_out, dist_out,
-                                sigma_out, f_occ, o_occ, S, n, k, bs, bn, bk,
-                                step, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int G = (S + 31) / 32, Sp = 32 * G;
+  const int per_block = kListThreads / 32;
+  const size_t bit_warps = (size_t)(n / 32) * S;
+  unreached_bits_kernel<<<(unsigned)((bit_warps + per_block - 1) / per_block),
+                          kListThreads, 0, st>>>(
+      (const int32_t*)dist, (uint32_t*)unr_t, S, Sp, n);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int list_warps = G * ((k + 31) / 32);
+  counting_items_kernel<<<(list_warps + per_block - 1) / per_block,
+                          kListThreads, 0, st>>>(
+      (const float*)fsigma, (const int32_t*)woff, (int4*)items,
+      (int32_t*)nitems, S, k, chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  counting_push_kernel<<<sms * blocks_per_sm, kPushThreads, 0, st>>>(
+      (const float*)fsigma, (const int8_t*)adj, (const int32_t*)wlist,
+      (const uint32_t*)unr_t, (const int4*)items, (const int32_t*)nitems,
+      (float*)cand_t, k, n, Sp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  counting_epilogue_kernel<<<dim3(n / 32, G), kEpilogueThreads, 0, st>>>(
+      (const int32_t*)dist, (const float*)sigma, (const float*)cand_t,
+      (int8_t*)new_out, (int32_t*)dist_out, (float*)sigma_out, S, Sp, n,
+      step);
+  return (int)cudaGetLastError();
 }
 
 // K6.  `chunk` live words per work item (1..32); `blocks_per_sm` blocks

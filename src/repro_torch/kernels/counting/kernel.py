@@ -9,7 +9,7 @@ checks.
   fused_counting_multisweep  K6 — up to ``n_run`` counting sweeps per
                              launch -> (new, (dist, sigma), prod, stopped)
 
-and the builder of the operand's live-word index that K6 reads:
+and the builder of the operand's live-word index that both read:
 
   nonzero_words              (k, n) int8 operand -> common.WordIndex of
                              its 16-byte words holding a non-zero byte
@@ -39,12 +39,13 @@ from . import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "counting.cu"
 
-CHUNK_WORDS = 16        # K6: live operand words per work item (<= 32)
+CHUNK_WORDS = 16        # K5 / K6: live operand words per work item (<= 32)
+PUSH_BLOCKS_PER_SM = 8  # K5: push blocks of 256 threads per SM
 BLOCKS_PER_SM = 2       # K6: cooperative blocks per SM (at most 2 fit)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "dawn_counting_sweep": [_P] * 9 + [_I] * 8 + [_P],
+    "dawn_counting_sweep": [_P] * 13 + [_I] * 6 + [_P],
     "dawn_fused_counting_multisweep": [_P] * 18 + [_I] * 6 + [_P],
     "dawn_counting_live_words": [_P] * 3 + [_I] * 2 + [_P],
 }
@@ -92,41 +93,56 @@ def nonzero_words(adj: torch.Tensor) -> common.WordIndex:
 
 def fused_counting_sweep(fsigma: torch.Tensor, adj: torch.Tensor,
                          dist: torch.Tensor, sigma: torch.Tensor, step, *,
-                         bs: int = 128, bn: int = 128, bk: int = 128):
+                         bs: int = 128, bn: int = 128, bk: int = 128,
+                         index: Optional[common.WordIndex] = None):
     """One fused counting sweep (K5).  fsigma (S, k) f32 — the
-    frontier-masked path counts (``where(frontier, sigma, 0)``), adj
-    (k, n) int8, dist (S, n) int32, sigma (S, n) f32.  S % bs == 0,
-    n % bn == 0, k % bk == 0; on the card also bn % 128 == 0 and
-    bk % 8 == 0.  Returns (new int8, dist int32, sigma f32).  k-blocks
-    with no positive fsigma (f_occ) and output tiles with no unreached
-    target (o_occ) are skipped; both skips are inert."""
+    frontier-masked path counts (``where(frontier, sigma, 0)``, so
+    >= 0), adj (k, n) int8, dist (S, n) int32, sigma (S, n) f32.
+    S % bs == 0, n % bn == 0, k % bk == 0; on the card also n % 32 == 0.
+    ``index`` is ``adj``'s live-word index (:func:`nonzero_words`, of the
+    k rows); without it the wrapper builds it, on the card only (the plain
+    version takes none).  Returns (new int8, dist int32, sigma f32).
+
+    k-blocks with no positive fsigma (f_occ) and output tiles with no
+    unreached target (o_occ) are skipped; both skips are inert.  The
+    plain version applies the two tables; the card's kernel tests each
+    row's fsigma > 0 and each target's dist < 0 itself, which gives the
+    same result, so the wrapper builds the tables only on the CPU."""
     s, k = fsigma.shape
     ka, n = adj.shape
     if ka != k or dist.shape != (s, n) or sigma.shape != (s, n):
         raise ValueError(f"shapes: {tuple(fsigma.shape)}, {tuple(adj.shape)}"
                          f", {tuple(dist.shape)}, {tuple(sigma.shape)}")
     common.check_push_tiles(s, n, bs, bn, bk, k=k)
-    gi, gj, gk = s // bs, n // bn, k // bk
-    f_occ = common.block_any(fsigma > 0, gi, bs, gk, bk)
-    o_occ = common.block_any(dist < 0, gi, bs, gj, bn)
     if not dist.is_cuda:
+        gi, gj, gk = s // bs, n // bn, k // bk
+        f_occ = common.block_any(fsigma > 0, gi, bs, gk, bk)
+        o_occ = common.block_any(dist < 0, gi, bs, gj, bn)
         return ref.counting_sweep_ref(fsigma, adj, dist, sigma, step,
                                       f_occ=f_occ, o_occ=o_occ)
     common.check_cuda(fsigma=(fsigma, torch.float32), adj=(adj, torch.int8),
                       dist=(dist, torch.int32), sigma=(sigma, torch.float32))
-    if bn % 128 or bk % 8:
-        raise ValueError(f"the kernel needs bn % 128 == 0 and bk % 8 == 0, "
-                         f"got bn={bn}, bk={bk}")
-    tm = common.tile_rows(bs, 16)
-    new = torch.empty((s, n), dtype=torch.int8, device=dist.device)
+    if n % 32:
+        raise ValueError(f"the kernel needs n % 32 == 0, got n={n}")
+    dev = dist.device
+    if index is None:
+        index = nonzero_words(adj)
+    common.check_index(index, k, dev)
+    sp = 32 * -(-s // 32)                    # node-major rows, 32 a group
+    new = torch.empty((s, n), dtype=torch.int8, device=dev)
     dist_out = torch.empty_like(dist)
     sig_out = torch.empty_like(sigma)
-    common.launch(_lib(), "dawn_counting_sweep", dist.device,
-                  fsigma.data_ptr(), adj.data_ptr(), dist.data_ptr(),
-                  sigma.data_ptr(), new.data_ptr(), dist_out.data_ptr(),
-                  sig_out.data_ptr(), f_occ.contiguous().data_ptr(),
-                  o_occ.contiguous().data_ptr(), s, n, k, tm, bs, bn, bk,
-                  int(step))
+    unr = torch.empty((n // 32, sp), dtype=torch.int32, device=dev)
+    items = index.work_list(s, CHUNK_WORDS)
+    nitems = torch.zeros(1, dtype=torch.int32, device=dev)
+    cand_t = torch.zeros((n, sp), dtype=torch.float32, device=dev)
+    common.launch(_lib(), "dawn_counting_sweep", dev, fsigma.data_ptr(),
+                  adj.data_ptr(), index.offsets.data_ptr(),
+                  index.words.data_ptr(), dist.data_ptr(), sigma.data_ptr(),
+                  new.data_ptr(), dist_out.data_ptr(), sig_out.data_ptr(),
+                  unr.data_ptr(), items.data_ptr(), nitems.data_ptr(),
+                  cand_t.data_ptr(), s, n, k, CHUNK_WORDS,
+                  PUSH_BLOCKS_PER_SM, int(step))
     fused_counting_sweep.launches += 1
     return new, dist_out, sig_out
 

@@ -2,7 +2,8 @@
 // weighted engine's hot path.
 //
 // Three kernels, one per Pallas kernel of src/repro/kernels/tropical/kernel.py,
-// and the builder of the dense operand's live-word index that K7 reads.
+// and the builder of the dense operand's live-word index that K7 and K8
+// read.
 // The state is dist (S, n) float32 with +inf for "no path yet"; the dense
 // operand is W (k, n) float32 with +inf for a non-edge, row k = the
 // out-edges of k; the sparse operand is the CSR lane arrays.  Every entry
@@ -30,9 +31,7 @@ constexpr int kListThreads = 256;             // K7 work list
 constexpr int kPushThreads = 256;             // K7 push
 constexpr int kEpilogueThreads = 256;         // K7 epilogue: 32 x 8
 constexpr int kIndexThreads = 256;            // live-word index: 8 rows
-constexpr int kFusedThreads = 1024;           // K8
-constexpr int kListCap = 4096;                // K8: active k per chunk
-constexpr int kBitsThreads = 256;             // K8 first pass
+constexpr int kFusedThreads = 256;            // K8: 8 warps
 constexpr int kRelaxThreads = 256;            // K9
 constexpr int32_t kInfBits = 0x7f800000;      // +inf as int32
 
@@ -224,166 +223,234 @@ __global__ void __launch_bounds__(kEpilogueThreads) minplus_epilogue_kernel(
   }
 }
 
-// K8, first pass: one bit per 16-byte operand word that holds a finite
-// weight (bit b of word q of row k covers W[k, 4 (32 q + b) .. + 4]).
-// One block per operand row; one warp tests 32 words and ballots.  It
-// reads the operand once (17.2 GB at n = 65,664, ~5 ms at the HBM rate).
-__global__ void __launch_bounds__(kBitsThreads) finite_words_kernel(
-    const float4* __restrict__ w, uint32_t* __restrict__ bits, int n4,
-    int bw) {
-  const float inf = inf_f();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const float4* row = w + (size_t)blockIdx.x * n4;
-  for (int q = warp; q < bw; q += nwarps) {
-    const int i = q * 32 + lane;
-    bool live = false;
-    if (i < n4) {
-      const float4 v = __ldg(row + i);
-      live = v.x != inf || v.y != inf || v.z != inf || v.w != inf;
+// One barrier across the whole grid of a cooperative launch (every block
+// is resident).  bar[0] counts arrivals, bar[1] is the generation; the
+// last block to arrive resets the count and bumps the generation.  The
+// fences order each block's writes before its arrival and the waiter's
+// reads after the release; data written by other blocks is read with
+// ld.global.cg (L2), never through a possibly stale L1 line.
+__device__ __forceinline__ void grid_sync(unsigned* bar, unsigned nblocks) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned* gen = bar + 1;
+    const unsigned g = *gen;
+    __threadfence();
+    if (atomicAdd(bar, 1u) == nblocks - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      while (*gen == g) __nanosleep(32);
     }
-    const uint32_t m = __ballot_sync(0xffffffffu, live);
-    if (lane == 0) bits[(size_t)blockIdx.x * bw + q] = m;
+    __threadfence();
   }
+  __syncthreads();
 }
 
 // K8 fused_minplus_multisweep.
 // Replaces _fused_minplus_kernel of src/repro/kernels/tropical/kernel.py.
-// Bound: bytes — each sweep must read, for every source row, the operand
-// rows of its frontier.  The TPU design keeps the whole (n, n) float32
-// operand on chip; at n = 65,664 it is 17.2 GB, against 227 KB of shared
-// memory.  So, as in K6, one block owns R (<= 8) source rows and keeps
-// their state in the output buffers in global memory (no other block
-// touches those rows, so no grid-wide sync is needed), with only a list of
-// active k on chip.  Unlike counting, no target is ever settled by a mask,
-// so a listed operand row would have to be read whole (256 KB at full
-// width, for every frontier entry of every sweep).  Instead the first pass
-// above marks the 16-byte words that hold a finite weight, and a listed
-// row costs its n / 32 bytes of bits plus its finite words.  Each sweep it
-//   1. lists, chunk by chunk, the k where any of its rows' frontier is
-//      set, with the mask of those rows;
-//   2. walks each listed row's bits (one warp per row), loads each finite
-//      word, and for every listed source row r with a finite dist[r, k]
-//      atomically mins the candidate dist[r, k] + W[k, j] into the
-//      candidate buffer where it beats dist[r, j] (int32 atomicMin on the
-//      float bits: order-preserving for +0.0 .. +inf);
-//   3. runs the epilogue over its rows: new = cand < dist, dist = cand
-//      there, writes the next frontier into the other frontier buffer
-//      (double-buffered), resets the candidates to +inf, and tests Fact 1
-//      with __syncthreads_or.
-// Rows evolve independently, so R does not change any result (see
+// Bound: bytes — each sweep must read, for every operand row k where some
+// row's frontier holds a finite distance, the 32 B sectors of row k that
+// hold a finite weight, plus the state.  The TPU design keeps the whole
+// (n, n) float32 operand on chip; at n = 65,664 it is 17.2 GB, against
+// 227 KB of shared memory, and rmat16's rows hold 25 finite 16-byte words
+// of 16,416 on average.  So the kernel runs K7's push inside one
+// cooperative grid over the whole batch (every block resident): it reads
+// only the words the live-word index lists, each ONCE per sweep for every
+// group of 32 source rows, and keeps the state node-major in global memory
+// (L2) between three grid barriers per sweep.
+//   Entry: dist is transposed to node-major (n, Sp) through a 32 x 32
+//      shared-memory tile (Sp = S rounded up to 32, the dead lanes +inf),
+//      the frontier becomes one 32-bit row mask per (group, node) (a
+//      frontier entry at +inf relaxes nothing, so it is dropped), and the
+//      candidates are set to +inf.
+//   Each sweep
+//   1. lists the work: a warp takes 32 operand rows k (a lane each) of one
+//      group of 32 source rows, reads each k's row mask and appends one
+//      item (k, a chunk of at most `chunk` of row k's live words, the
+//      group, the mask) per chunk; RMAT's hub rows become many chunks on
+//      many warps;
+//   2. runs the items, a warp each with one lane per source row: the
+//      lanes load the chunk's words once (16 B each, every one holding a
+//      finite weight) and pass them round by shuffle; a lane whose row
+//      holds k in its frontier takes the candidate dist[r, k] + W[k, j]
+//      (one __fadd_rn) for each finite weight and atomically mins it into
+//      the candidates where it beats dist[r, j] (int32 atomicMin on the
+//      float bits: order-preserving for +0.0 .. +inf).  The 32 lanes of a
+//      column touch one 128-byte line, so a warp's compare and its atomics
+//      are one L2 request each;
+//   3. runs the epilogue over the node-major state, a warp per (node,
+//      group): new = cand < dist, dist = cand there, the candidate reset
+//      to +inf, the next row mask by ballot, and a per-sweep found flag
+//      ORed over the grid (Fact 1).
+//   Exit: dist back to (S, n) through the tile, and new from the last row
+//      masks (zeros after a sweep that found nothing, or when none ran).
+// Min is exact and order-free, so the bits equal the plain version's in
+// any visiting order.  Rows evolve independently, so one tile of all S
+// rows gives the per-tile accounting of any tiling (see
 // ref.fused_minplus_multisweep_ref).
-__global__ void __launch_bounds__(kFusedThreads) fused_minplus_kernel(
-    const int8_t* frontier, const float* __restrict__ w,
-    const uint32_t* __restrict__ wbits, const float* __restrict__ dist,
-    int8_t* __restrict__ new_out, float* dist_out, int8_t* fa, int8_t* fb,
-    int32_t* cand, int32_t* __restrict__ prod_out,
-    int32_t* __restrict__ stop_out, int n, int R, int n_run) {
-  __shared__ int list[kListCap];                         // k << 8 | mask
-  __shared__ int nlist;
-
+__global__ void __launch_bounds__(kFusedThreads, 4) fused_minplus_kernel(
+    const int8_t* __restrict__ frontier, const float* __restrict__ w,
+    const int32_t* __restrict__ woff, const int32_t* __restrict__ wlist,
+    const float* __restrict__ dist, int8_t* __restrict__ new_out,
+    float* __restrict__ dist_out, float* dist_t, int32_t* cand_t,
+    uint32_t* fmask, int4* items, int32_t* counts, unsigned* bar,
+    int32_t* prod_out, int32_t* stop_out, int S, int n, int chunk,
+    int n_run) {
+  __shared__ float tile[32][33];
+  __shared__ uint32_t rows[32];
   const float inf = inf_f();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int bw = n >> 7;                                 // bit words per row
-  const int row0 = blockIdx.x * R;
-  const size_t base = (size_t)row0 * n;
-  float* dout = dist_out + base;
-  int32_t* cnd = cand + base;
+  const int bwarps = kFusedThreads / 32;
+  const int gwarp = (blockIdx.x * blockDim.x + tid) >> 5;
+  const int nwarps = (gridDim.x * blockDim.x) >> 5;
+  const unsigned nblocks = gridDim.x;
+  const int G = (S + 31) >> 5;                           // row groups
+  const int Sp = G << 5;
+  const int nt = n >> 5;                                 // 32-node tiles
 
-  for (int i = tid; i < R * n; i += blockDim.x) dout[i] = dist[base + i];
-  __syncthreads();
+  // entry: node-major dist, row masks of the finite frontier, +inf cands
+  for (int t = blockIdx.x; t < nt * G; t += gridDim.x) {
+    const int g = t / nt, j0 = (t - g * nt) << 5;
+    for (int i = warp; i < 32; i += bwarps) {
+      const int r = 32 * g + i;
+      float d = inf;
+      bool live = false;
+      if (r < S) {
+        const size_t idx = (size_t)r * n + j0 + lane;
+        d = dist[idx];
+        live = frontier[idx] != 0 && finite_f(d);
+      }
+      tile[i][lane] = d;
+      const uint32_t m = __ballot_sync(0xffffffffu, live);  // over nodes
+      if (lane == 0) rows[i] = m;
+    }
+    __syncthreads();
+    for (int i = warp; i < 32; i += bwarps) {
+      const int j = j0 + i;
+      const size_t idx = (size_t)j * Sp + 32 * g + lane;
+      dist_t[idx] = tile[lane][i];
+      cand_t[idx] = kInfBits;
+      const uint32_t m = __ballot_sync(0xffffffffu, (rows[lane] >> i) & 1u);
+      if (lane == 0) fmask[(size_t)g * n + j] = m;
+    }
+    __syncthreads();
+  }
+  grid_sync(bar, nblocks);
 
-  const int8_t* cur = frontier + base;
-  int8_t* bufs[2] = {fa + base, fb + base};
-  int wi = 0;                                            // buffer written next
   int prod = 0, done = 0;
   for (int t = 0; t < n_run; ++t) {
-    // 1-2. relax the frontier's operand rows, one chunk of k at a time
-    for (int k0 = 0; k0 < n; k0 += kListCap) {
-      if (tid == 0) nlist = 0;
-      __syncthreads();
-      const int kend = min(n, k0 + kListCap);
-      for (int kk = k0 + tid; kk < kend; kk += blockDim.x) {
-        int mask = 0;
-        for (int r = 0; r < R; ++r)
-          if (cur[(size_t)r * n + kk]) mask |= 1 << r;
-        if (mask) list[atomicAdd(&nlist, 1)] = (kk << 8) | mask;
+    int32_t* nitems = counts + 2 * t;
+    int32_t* found = counts + 2 * t + 1;
+    // 1. list the work items of this sweep
+    for (int c = gwarp; c < nt * G; c += nwarps) {
+      const int g = c / nt;
+      const int k = (c - g * nt) * 32 + lane;
+      const uint32_t mask = __ldcg(fmask + (size_t)g * n + k);
+      int off = 0, len = 0, nch = 0;
+      if (mask) {
+        off = __ldg(woff + k);
+        len = __ldg(woff + k + 1) - off;
+        nch = (len + chunk - 1) / chunk;
       }
-      __syncthreads();
-      const int na = nlist;
-      for (int i = warp; i < na; i += nwarps) {
-        const int kk = list[i] >> 8, mask = list[i] & 0xff;
-        float fd[8];
-        bool any = false;
+      int incl = nch;                                    // warp scan
 #pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          fd[r] = (r < R && ((mask >> r) & 1)) ? dout[(size_t)r * n + kk]
-                                               : inf;
-          any |= fd[r] != inf;
-        }
-        if (!any) continue;                              // warp-uniform
-        const float4* wrow =
-            reinterpret_cast<const float4*>(w + (size_t)kk * n);
-        const uint32_t* brow = wbits + (size_t)kk * bw;
-        for (int q = lane; q < bw; q += 32) {
-          uint32_t m = brow[q];
-          while (m) {
-            const int b = __ffs(m) - 1;
-            m &= m - 1;
-            const int c4 = q * 32 + b;
-            const float4 v = __ldg(wrow + c4);
-            const float wv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              if (wv[e] == inf) continue;
-              const int j = c4 * 4 + e;
-#pragma unroll
-              for (int r = 0; r < 8; ++r) {
-                if (fd[r] == inf) continue;
-                const float c = __fadd_rn(fd[r], wv[e]);
-                const size_t idx = (size_t)r * n + j;
-                if (c < dout[idx]) atomicMin(&cnd[idx], __float_as_int(c));
-              }
-            }
-          }
-        }
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
       }
-      __syncthreads();
+      const int wsum = __shfl_sync(0xffffffffu, incl, 31);
+      if (!wsum) continue;                               // warp-uniform
+      int base = 0;
+      if (lane == 31) base = atomicAdd(nitems, wsum);
+      base = __shfl_sync(0xffffffffu, base, 31) + incl - nch;
+      for (int q = 0; q < nch; ++q)
+        items[base + q] = make_int4(k, off + q * chunk,
+                                    (g << 8) | min(chunk, len - q * chunk),
+                                    (int)mask);
     }
-    // 3. epilogue over the block's rows; Fact 1 per block
-    int8_t* nxt = bufs[wi];
+    grid_sync(bar, nblocks);
+    // 2. run the items: min dist[r, k] + W[k, j] into the candidates
+    const int ni = __ldcg(nitems);
+    for (int i = gwarp; i < ni; i += nwarps) {
+      const int4 it = __ldcg(items + i);
+      const int k = it.x, len = it.z & 0xff, g = it.z >> 8;
+      const int r = 32 * g + lane;
+      const bool act = ((uint32_t)it.w >> lane) & 1u;
+      const float fd = act ? __ldcg(dist_t + (size_t)k * Sp + r) : inf;
+      int widx = 0;
+      float4 v = make_float4(inf, inf, inf, inf);
+      if (lane < len) {
+        widx = __ldg(wlist + it.y + lane);
+        v = __ldg(reinterpret_cast<const float4*>(w + (size_t)k * n) + widx);
+      }
+      for (int q = 0; q < len; ++q) {
+        const int j0 = 4 * __shfl_sync(0xffffffffu, widx, q);
+        const float wv[4] = {__shfl_sync(0xffffffffu, v.x, q),
+                             __shfl_sync(0xffffffffu, v.y, q),
+                             __shfl_sync(0xffffffffu, v.z, q),
+                             __shfl_sync(0xffffffffu, v.w, q)};
+        if (!act) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (wv[e] == inf) continue;
+          const size_t idx = (size_t)(j0 + e) * Sp + r;
+          const float c = __fadd_rn(fd, wv[e]);
+          if (c < __ldcg(dist_t + idx))
+            atomicMin(cand_t + idx, __float_as_int(c));
+        }
+      }
+    }
+    grid_sync(bar, nblocks);
+    // 3. epilogue over the node-major state; Fact 1 over the grid
     int mine = 0;
-    for (int i = tid; i < R * n; i += blockDim.x) {
-      const int32_t cb = cnd[i];
+    for (size_t q = gwarp; q < (size_t)n * G; q += nwarps) {
+      const size_t idx = q * 32 + lane;                  // node q / G
+      const int32_t cb = __ldcg(cand_t + idx);
       bool nw = false;
       if (cb != kInfBits) {
-        cnd[i] = kInfBits;
+        cand_t[idx] = kInfBits;
         const float c = __int_as_float(cb);
-        if (c < dout[i]) {
-          dout[i] = c;
+        if (c < __ldcg(dist_t + idx)) {
+          dist_t[idx] = c;
           nw = true;
         }
       }
-      nxt[i] = nw ? 1 : 0;
-      mine |= nw;
+      const uint32_t m = __ballot_sync(0xffffffffu, nw);
+      if (lane == 0) fmask[(q % G) * n + q / G] = m;
+      mine |= m != 0u;
     }
-    if (!__syncthreads_or(mine)) {
+    if (__syncthreads_or(mine) && tid == 0) atomicOr(found, 1);
+    grid_sync(bar, nblocks);
+    if (!__ldcg(found)) {                                // grid-uniform
       done = 1;
       break;
     }
     ++prod;
-    cur = nxt;
-    wi ^= 1;
   }
-  // new = the last sweep's improvements; zeros after a sweep that found
-  // nothing (Fact 1) or when no sweep ran
-  const bool keep = !done && n_run > 0;
-  for (int i = tid; i < R * n; i += blockDim.x)
-    new_out[base + i] = keep ? cur[i] : (int8_t)0;
-  if (tid == 0) {
-    prod_out[blockIdx.x] = prod;
-    stop_out[blockIdx.x] = done;
+  // exit: dist back to (S, n); new = the last sweep's row masks, zeros
+  // after a sweep that found nothing (they are) or when no sweep ran
+  for (int t = blockIdx.x; t < nt * G; t += gridDim.x) {
+    const int g = t / nt, j0 = (t - g * nt) << 5;
+    for (int i = warp; i < 32; i += bwarps) {
+      const int j = j0 + i;
+      tile[i][lane] = __ldcg(dist_t + (size_t)j * Sp + 32 * g + lane);
+      if (lane == 0)
+        rows[i] = n_run > 0 ? __ldcg(fmask + (size_t)g * n + j) : 0u;
+    }
+    __syncthreads();
+    for (int i = warp; i < 32; i += bwarps) {
+      const int r = 32 * g + i;
+      if (r >= S) break;                                 // warp-uniform
+      const size_t idx = (size_t)r * n + j0 + lane;
+      dist_out[idx] = tile[lane][i];
+      new_out[idx] = (int8_t)((rows[lane] >> i) & 1u);
+    }
+    __syncthreads();
+  }
+  if (blockIdx.x == 0 && tid == 0) {
+    prod_out[0] = prod;
+    stop_out[0] = done;
   }
 }
 
@@ -506,28 +573,55 @@ int dawn_tropical_live_words(const void* w, const void* offsets, void* out,
   return (int)cudaGetLastError();
 }
 
-// `rows` source rows per block (1..8, dividing S); n a multiple of 128.
-// wbits: (n, n / 128) uint32 scratch; fa, fb: (S, n) int8 frontier
-// buffers; cand: (S, n) int32 holding the bits of +inf.
-int dawn_fused_minplus_multisweep(const void* frontier, const void* w,
-                                  void* wbits, const void* dist,
-                                  void* new_out, void* dist_out, void* fa,
-                                  void* fb, void* cand, void* prod,
-                                  void* stop, int S, int n, int rows,
-                                  int n_run, void* stream) {
-  if (rows < 1 || rows > 8 || S % rows || n % 128 || n >= (1 << 23))
+// K8.  n a multiple of 32; woff / wlist: the live-word index of w;
+// `chunk` live words per work item (1..32); `blocks_per_sm` blocks of the
+// cooperative grid per SM (capped at what the SM holds).  dist_t, cand_t:
+// (n, Sp) float32 / int32 scratch, Sp = S rounded up to 32; fmask:
+// (Sp / 32, n) uint32; items: room for (Sp / 32) x (the index's work items
+// at `chunk`) int4; counts: 2 * n_run int32, zeroed; bar: 2 uint32,
+// zeroed; prod, stop: one int32 each.
+int dawn_fused_minplus_multisweep(
+    const void* frontier, const void* w, const void* woff, const void* wlist,
+    const void* dist, void* new_out, void* dist_out, void* dist_t,
+    void* cand_t, void* fmask, void* items, void* counts, void* bar,
+    void* prod, void* stop, int S, int n, int chunk, int blocks_per_sm,
+    int n_run, void* stream) {
+  if (S < 1 || n < 32 || n % 32 || chunk < 1 || chunk > 32 ||
+      blocks_per_sm < 1 || n_run < 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int n4 = n / 4, bw = n / 128;
-  finite_words_kernel<<<n, kBitsThreads, 0, st>>>(
-      (const float4*)w, (uint32_t*)wbits, n4, bw);
-  cudaError_t err = cudaGetLastError();
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fused_minplus_kernel, kFusedThreads, 0);
   if (err != cudaSuccess) return (int)err;
-  fused_minplus_kernel<<<S / rows, kFusedThreads, 0, st>>>(
-      (const int8_t*)frontier, (const float*)w, (const uint32_t*)wbits,
-      (const float*)dist, (int8_t*)new_out, (float*)dist_out, (int8_t*)fa,
-      (int8_t*)fb, (int32_t*)cand, (int32_t*)prod, (int32_t*)stop, n, rows,
-      n_run);
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int8_t* a_frontier = (const int8_t*)frontier;
+  const float* a_w = (const float*)w;
+  const int32_t* a_woff = (const int32_t*)woff;
+  const int32_t* a_wlist = (const int32_t*)wlist;
+  const float* a_dist = (const float*)dist;
+  int8_t* a_new = (int8_t*)new_out;
+  float* a_dist_out = (float*)dist_out;
+  float* a_dist_t = (float*)dist_t;
+  int32_t* a_cand_t = (int32_t*)cand_t;
+  uint32_t* a_fmask = (uint32_t*)fmask;
+  int4* a_items = (int4*)items;
+  int32_t* a_counts = (int32_t*)counts;
+  unsigned* a_bar = (unsigned*)bar;
+  int32_t* a_prod = (int32_t*)prod;
+  int32_t* a_stop = (int32_t*)stop;
+  void* args[] = {&a_frontier, &a_w, &a_woff, &a_wlist, &a_dist, &a_new,
+                  &a_dist_out, &a_dist_t, &a_cand_t, &a_fmask, &a_items,
+                  &a_counts, &a_bar, &a_prod, &a_stop, &S, &n, &chunk,
+                  &n_run};
+  const int blocks = sms * (per_sm < blocks_per_sm ? per_sm : blocks_per_sm);
+  err = cudaLaunchCooperativeKernel((const void*)fused_minplus_kernel,
+                                    dim3(blocks), dim3(kFusedThreads), args,
+                                    0, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -11,7 +11,8 @@ divisibility checks.
   sparse_relax_sweep        K9 — edge-parallel relax over the CSR lanes
                             of the frontier -> (new, dist)
 
-and the builder of the dense operand's live-word index that K7 reads:
+and the builder of the dense operand's live-word index that K7 and K8
+read:
 
   finite_words              (k, n) f32 operand -> common.WordIndex of its
                             16-byte words holding a finite weight
@@ -41,16 +42,17 @@ from . import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "tropical.cu"
 
-FUSED_ROWS = 1          # source rows per K8 block (<= 8), passed to the kernel
-LIST_CAP = 4096         # K8: active-k list entries (static shared memory)
-CHUNK_WORDS = 16        # K7: live operand words per work item (<= 32)
+CHUNK_WORDS = 16        # K7 / K8: live operand words per work item (<= 32)
 PUSH_BLOCKS_PER_SM = 8  # K7: push blocks of 256 threads per SM
+FUSED_BLOCKS_PER_SM = 8  # K8: cooperative blocks of 256 threads per SM,
+                         # capped at what the SM holds
+FUSED_TILE_BYTES = 4 * (32 * 33 + 32)   # K8: one block's transpose tile
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "dawn_minplus_sweep": [_P] * 13 + [_I] * 8 + [_P],
     "dawn_tropical_live_words": [_P] * 3 + [_I] * 2 + [_P],
-    "dawn_fused_minplus_multisweep": [_P] * 11 + [_I] * 4 + [_P],
+    "dawn_fused_minplus_multisweep": [_P] * 15 + [_I] * 5 + [_P],
     "dawn_sparse_relax": [_P] * 8 + [_I] * 2 + [_P],
 }
 
@@ -164,30 +166,32 @@ def fused_minplus_sweep(fdist: torch.Tensor, wdense: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def fused_smem_bytes(n: int) -> int:
-    """Shared memory of one K8 block: the active-k list and its counter
-    (static).  The rows' state stays in global memory, so the size does
-    not grow with the padded node count ``n``; the kernel itself refuses
-    n >= 2^23 (the list packs k into 23 bits)."""
+    """Shared memory of one K8 block: the 32 x 32 tile that transposes the
+    state on entry and exit.  The node-major state, the candidates, the
+    frontier's row masks and the work list live in global memory (L2), so
+    the size does not grow with the padded node count ``n``."""
     del n
-    return 4 * LIST_CAP + 4
+    return FUSED_TILE_BYTES
 
 
 def fused_minplus_multisweep(frontier: torch.Tensor, wdense: torch.Tensor,
                              dist: torch.Tensor, step, n_run, *,
-                             bs: int = 128, max_sweeps: int = 1):
+                             bs: int = 128, max_sweeps: int = 1,
+                             index: Optional[common.WordIndex] = None):
     """Run up to ``n_run`` (min,+) sweeps (``n_run <= max_sweeps``) in ONE
     launch (K8).  frontier (S, n) int8 improved-mask, wdense (n, n) f32,
     dist (S, n) f32; ``step`` is accepted for signature uniformity and
     unused (tropical distances are the candidates themselves).
+    ``index`` is ``wdense``'s live-word index (:func:`finite_words`);
+    without it the wrapper builds it, on the card only (the plain version
+    takes none).
 
     Returns (new int8, dist f32, prod int32 scalar, stopped bool scalar):
     ``prod`` is the most productive sweeps of any row tile and ``stopped``
     whether every tile converged, so the loop driver's accounting is
-    ``executed = stopped ? prod + 1 : n_run``.  The kernel runs FUSED_ROWS
-    source rows per block whatever ``bs`` is; rows evolve independently,
-    so no result depends on the tile.  On the card a first pass marks the
-    16-byte operand words that hold a finite weight, in an (n, n/128)
-    int32 scratch of n^2/32 bytes."""
+    ``executed = stopped ? prod + 1 : n_run``.  The kernel runs all S rows
+    as one tile on a cooperative grid whatever ``bs`` is; rows evolve
+    independently, so no result depends on the tile."""
     del step
     s, n = frontier.shape
     if wdense.shape != (n, n) or dist.shape != (s, n):
@@ -205,24 +209,31 @@ def fused_minplus_multisweep(frontier: torch.Tensor, wdense: torch.Tensor,
     common.check_cuda(frontier=(frontier, torch.int8),
                       wdense=(wdense, torch.float32),
                       dist=(dist, torch.float32))
-    rows = common.tile_rows(s, FUSED_ROWS)
-    tiles = s // rows
     dev = dist.device
+    if index is None:
+        index = finite_words(wdense)
+    common.check_index(index, n, dev)
+    sp = 32 * -(-s // 32)                    # node-major rows, 32 a group
     new = torch.empty((s, n), dtype=torch.int8, device=dev)
     dist_out = torch.empty_like(dist)
-    wbits = torch.empty((n, n // 128), dtype=torch.int32, device=dev)
-    fa = torch.empty((s, n), dtype=torch.int8, device=dev)
-    fb = torch.empty((s, n), dtype=torch.int8, device=dev)
-    cand = torch.full((s, n), float("inf"), dtype=torch.float32, device=dev)
-    prod = torch.empty(tiles, dtype=torch.int32, device=dev)
-    stop = torch.empty(tiles, dtype=torch.int32, device=dev)
+    dist_t = torch.empty((n, sp), dtype=torch.float32, device=dev)
+    cand_t = torch.empty((n, sp), dtype=torch.int32, device=dev)
+    fmask = torch.empty((sp // 32, n), dtype=torch.int32, device=dev)
+    items = index.work_list(s, CHUNK_WORDS)
+    counts = torch.zeros(2 * max(n_run, 1), dtype=torch.int32, device=dev)
+    bar = torch.zeros(2, dtype=torch.int32, device=dev)
+    prod = torch.empty(1, dtype=torch.int32, device=dev)
+    stop = torch.empty(1, dtype=torch.int32, device=dev)
     common.launch(_lib(), "dawn_fused_minplus_multisweep", dev,
-                  frontier.data_ptr(), wdense.data_ptr(), wbits.data_ptr(),
+                  frontier.data_ptr(), wdense.data_ptr(),
+                  index.offsets.data_ptr(), index.words.data_ptr(),
                   dist.data_ptr(), new.data_ptr(), dist_out.data_ptr(),
-                  fa.data_ptr(), fb.data_ptr(), cand.data_ptr(),
-                  prod.data_ptr(), stop.data_ptr(), s, n, rows, n_run)
+                  dist_t.data_ptr(), cand_t.data_ptr(), fmask.data_ptr(),
+                  items.data_ptr(), counts.data_ptr(), bar.data_ptr(),
+                  prod.data_ptr(), stop.data_ptr(), s, n, CHUNK_WORDS,
+                  FUSED_BLOCKS_PER_SM, n_run)
     fused_minplus_multisweep.launches += 1
-    return new, dist_out, prod.max(), stop.min() > 0
+    return new, dist_out, prod[0], stop[0] > 0
 
 
 # --------------------------------------------------------------------------

@@ -106,6 +106,57 @@ def test_counting_sweep_matches_pallas(s, n, bs, bk, skip):
     assert tkern.fused_counting_sweep.launches == 0     # CPU: no launch
 
 
+@pytest.mark.parametrize("s,n,bs,bk,skip", [
+    (16, 256, 8, 128, "none"),
+    (32, 256, 16, 128, "k_block"),
+    (16, 384, 16, 128, "settled"),
+])
+def test_counting_sweep_with_index_matches_pallas(s, n, bs, bk, skip):
+    """K5 handed the live-word index (built by its plain builder) on the
+    states of the test above: the same bits as without it and as the
+    Pallas kernel.  On the CPU the plain version reads no index."""
+    rng = np.random.default_rng(n + s)
+    adj = (rng.random((n, n)) < 0.05).astype(np.int8)
+    f, d, sg = _state(s, s, n)
+    if skip == "k_block":
+        f[:, 128:256] = 0
+    if skip == "settled":
+        d[:bs, 128:256] = 2
+        sg[:bs, 128:256] = 3.0
+    fs = np.where(f != 0, sg, 0).astype(np.float32)
+    want = jkern.fused_counting_sweep(
+        jnp.asarray(fs), jnp.asarray(adj), jnp.asarray(d), jnp.asarray(sg),
+        5, bs=bs, bn=128, bk=bk, interpret=True)
+    args = (torch.from_numpy(fs), torch.from_numpy(adj),
+            torch.from_numpy(d), torch.from_numpy(sg), 5)
+    plain = tkern.fused_counting_sweep(*args, bs=bs, bn=128, bk=bk)
+    got = tkern.fused_counting_sweep(
+        *args, bs=bs, bn=128, bk=bk,
+        index=tkern.nonzero_words_ref(args[1]))
+    _same(want, got)
+    _same(tuple(x.numpy() for x in plain), got)
+
+
+def test_counting_sweep_k_rows_with_index():
+    """A (k, n) K-row block with k < n, the sharded executor's operand:
+    K5 with the block's own index equals the Pallas kernel."""
+    rng = np.random.default_rng(5)
+    s, k, n = 16, 128, 384
+    adj = (rng.random((k, n)) < 0.05).astype(np.int8)
+    f, d, sg = _state(9, s, n)
+    fs = np.where(f[:, :k] != 0, sg[:, :k], 0).astype(np.float32)
+    want = jkern.fused_counting_sweep(
+        jnp.asarray(fs), jnp.asarray(adj), jnp.asarray(d), jnp.asarray(sg),
+        2, bs=16, bn=128, bk=128, interpret=True)
+    at = torch.from_numpy(adj)
+    index = tkern.nonzero_words(at)
+    assert index.offsets.shape == (k + 1,)
+    got = tkern.fused_counting_sweep(
+        torch.from_numpy(fs), at, torch.from_numpy(d), torch.from_numpy(sg),
+        2, bs=16, index=index)
+    _same(want, got)
+
+
 @pytest.mark.parametrize("n_run", [0, 1, 2, 40])
 def test_counting_multisweep_matches_pallas(n_run):
     """n_run = 0 (inert), 1 and 2 (not converging), 40 (converges
@@ -190,8 +241,9 @@ def test_index_marks_exactly_the_nonzero_words(family):
 
 def test_fused_multisweep_same_with_and_without_index():
     """On the CPU the K6 wrapper takes its plain version, which reads no
-    index: passing the live-word index changes nothing, and neither does
-    the engine's fused path, which hands the prepared graph's index on."""
+    index: passing the live-word index changes nothing, and the engine's
+    fused path, which hands the prepared graph's index on only on the
+    card, neither builds it nor changes a result."""
     jg = jgen.watts_strogatz(120, 4, 0.1, seed=7)
     n = jg.n_padded()
     adj = torch.from_numpy(np.array(jg.to_dense_padded(n)))
@@ -216,11 +268,26 @@ def test_fused_multisweep_same_with_and_without_index():
                               .CentralityConfig(use_kernel=True,
                                                 fused_steps=-1,
                                                 source_batch=8))
-    assert pg._adj_index is not None
-    np.testing.assert_array_equal(pg.adj_index.words.numpy(),
+    assert pg._adj_index is None
+    np.testing.assert_array_equal(tkern.nonzero_words(adj).words.numpy(),
                                   lane_words(jg, 16, n)[1])
     np.testing.assert_array_equal(res.dist.numpy(),
                                   bfs_dists(jg, np.arange(0, 120, 7)))
+
+
+@pytest.mark.parametrize("config", ["kernel_push", "dynamic", "fused3"])
+def test_cpu_prepared_graph_builds_no_index(config):
+    """Whatever push kernel can dispatch, a prepared graph on the CPU
+    never builds ``adj_index`` (the plain versions read none), and the
+    results stay the oracle's."""
+    jg = jgen.watts_strogatz(120, 4, 0.1, seed=7)
+    sources = np.arange(0, 120, 7)
+    pg = tcent.prepare_graph(carry(jg), device="cpu")
+    res = tcent.counting_apsp(pg, sources, config=tcent.CentralityConfig(
+        source_batch=8, **CONFIGS[config]))
+    assert pg._adj_index is None
+    np.testing.assert_array_equal(res.dist.numpy(), bfs_dists(jg, sources))
+    np.testing.assert_array_equal(res.sigma.numpy(), bfs_sigmas(jg, sources))
 
 
 def test_wrappers_validate_shapes_and_tiles():
@@ -293,6 +360,36 @@ def test_counting_push_matches_sparse_and_jax(family):
         outs.append(got)
     _same(tuple(o.numpy() for o in (outs[0][0],) + outs[0][1]),
           (outs[1][0],) + outs[1][1])
+
+
+@pytest.mark.parametrize("family", ["random_ragged", "duplicate_edges",
+                                    "star_in"])
+def test_counting_kernel_push_with_index_matches_jax(family):
+    """The kernel push form handed the operand's live-word index runs its
+    plain version on the CPU: the same bits as JAX's kernel push form in
+    interpret mode, and as the form without the index."""
+    src, dst, n = FAMILIES[family]
+    jg = JCSR.from_edges(src, dst, n)
+    tg = carry(jg)
+    n_pad = jg.n_padded()
+    adj = np.asarray(jg.to_dense_padded(n_pad))
+    f, d, sg = _state(n + 1, 16, n_pad, density=0.3)
+    d[:, n:] = 0
+    sg[:, n:] = 0
+    f[:, n:] = 0
+    at = torch.from_numpy(adj)
+    jpush = jsweep.counting_forms(jnp.asarray(adj), jg.src, jg.dst,
+                                  n_pad=n_pad, s=16, use_kernel=True,
+                                  interpret=True)[0]
+    want = jpush(jnp.asarray(f), (jnp.asarray(d), jnp.asarray(sg)),
+                 jnp.zeros(1, jnp.int32), 3)
+    p = torch.zeros(1, dtype=torch.int32)
+    state = (torch.from_numpy(f), (torch.from_numpy(d),
+                                   torch.from_numpy(sg)), p, 3)
+    for index in (None, tkern.nonzero_words(at)):
+        push = tsweep.counting_forms(at, tg.src, tg.dst, n_pad=n_pad, s=16,
+                                     use_kernel=True, index=index)[0]
+        _same(want[:2], push(*state)[:2])
 
 
 # --------------------------------------------------------------------------

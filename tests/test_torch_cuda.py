@@ -286,10 +286,11 @@ def _counting_start(g, s, n, seed):
 def test_counting_kernels_match_plain(cuda, monkeypatch, s, nodes, bs,
                                       chunk):
     """K5 sweep by sweep from the sources, then K6 from the mid-run state
-    (n_run 0, 1, 3 and to a fixpoint it stops early at, ``chunk`` live
-    words per work item, with and without a prepared live-word index):
-    bit-identical to the plain versions on the CPU.  S = 40 leaves 24
-    lanes of the last row group past S; n_pad 384, 512, 768, 1,024."""
+    (n_run 0, 1, 3 and to a fixpoint it stops early at; both with
+    ``chunk`` live words per work item, with and without a prepared
+    live-word index): bit-identical to the plain versions on the CPU.
+    S = 40 leaves 24 lanes of the last row group past S; n_pad 384, 512,
+    768, 1,024."""
     monkeypatch.setattr(counting.kernel, "CHUNK_WORDS", chunk)
     g = gen.erdos_renyi(nodes, 5.0, seed=nodes, directed=False,
                         device="cpu")
@@ -303,7 +304,8 @@ def test_counting_kernels_match_plain(cuda, monkeypatch, s, nodes, bs,
         want = counting.fused_counting_sweep(fs, adj, d, sg, step, bs=bs)
         got = counting.fused_counting_sweep(fs.to(cuda), adj.to(cuda),
                                             d.to(cuda), sg.to(cuda), step,
-                                            bs=bs)
+                                            bs=bs,
+                                            index=index if step % 2 else None)
         torch.cuda.synchronize()
         _same(want, got)
         f, d, sg = want
@@ -322,6 +324,66 @@ def test_counting_kernels_match_plain(cuda, monkeypatch, s, nodes, bs,
         assert bool(want[3]) == bool(got[3])
     assert bool(got[3]) and int(got[2]) < 50        # stopped early
     assert counting.fused_counting_multisweep.launches == before + 4
+
+
+@pytest.mark.parametrize("s", [16, 40, 128, 256])
+@pytest.mark.parametrize("chunk", [1, 5, 16])
+def test_counting_sweep_kernel_over_index_matches_plain(cuda, monkeypatch, s,
+                                                        chunk):
+    """K5 over the live-word index (``chunk`` words per work item), with a
+    prepared index and building its own, sweep by sweep from the sources
+    to the fixpoint on an RMAT graph (hub rows of many chunks):
+    bit-identical to the plain version.  S = 16 and 40 leave dead lanes in
+    the last 32-row group."""
+    monkeypatch.setattr(counting.kernel, "CHUNK_WORDS", chunk)
+    g = gen.rmat(9, 8, directed=False, seed=s, device="cpu")
+    n = g.n_padded()
+    adj = g.to_dense_padded(n)
+    index = counting.nonzero_words(adj.to(cuda))
+    f, d, sg = _counting_start(g, s, n, s + chunk)
+    bs = 8 if s % 16 else 16
+    for step in range(1, 40):
+        fs = torch.where(f != 0, sg, 0.0)
+        want = counting.fused_counting_sweep(fs, adj, d, sg, step, bs=bs)
+        for idx in (index, None):
+            got = counting.fused_counting_sweep(
+                fs.to(cuda), adj.to(cuda), d.to(cuda), sg.to(cuda), step,
+                bs=bs, index=idx)
+            torch.cuda.synchronize()
+            _same(want, got)
+        f, d, sg = want
+        if not f.any():
+            break
+    assert step > 2 and not f.any()                 # reached the fixpoint
+
+
+def test_counting_sweep_kernel_on_k_row_block(cuda):
+    """K5 on a (k, n) K-row block with k < n (the sharded executor's
+    operand) and that block's own index: bit-identical to the plain
+    version."""
+    g = gen.erdos_renyi(700, 5.0, seed=11, directed=False, device="cpu")
+    n = g.n_padded()
+    s, k0, k = 40, 256, 384
+    block = g.to_dense_padded(n)[k0: k0 + k].contiguous()
+    f, d, sg = _counting_start(g, s, n, 11)
+    for _ in range(2):                              # a wide frontier
+        fs = torch.where(f != 0, sg, 0.0)
+        f, d, sg = counting.fused_counting_sweep(fs, g.to_dense_padded(n),
+                                                 d, sg, 1, bs=8)
+    fs = torch.where(f != 0, sg, 0.0)[:, k0: k0 + k].contiguous()
+    want = counting.fused_counting_sweep(fs, block, d, sg, 3, bs=8)
+    assert want[0].any()
+    index = counting.nonzero_words(block.to(cuda))
+    assert index.offsets.shape == (k + 1,)
+    got = counting.fused_counting_sweep(fs.to(cuda), block.to(cuda),
+                                        d.to(cuda), sg.to(cuda), 3, bs=8,
+                                        index=index)
+    torch.cuda.synchronize()
+    _same(want, got)
+    with pytest.raises(ValueError, match="offsets"):
+        counting.fused_counting_sweep(
+            fs.to(cuda), block.to(cuda), d.to(cuda), sg.to(cuda), 3, bs=8,
+            index=counting.nonzero_words(g.to_dense_padded(n).to(cuda)))
 
 
 def _hub_isolated(n=1000):
@@ -398,9 +460,10 @@ def test_tropical_kernels_match_plain(cuda, monkeypatch, s, nodes, bs,
                                       chunk):
     """K7 (``chunk`` live words per work item; with a prepared live-word
     index, then building its own) and K9 sweep by sweep, then K8 from the
-    mid-run state (n_run 0, 1, 3 and to the fixpoint, with 1 and 4 source
-    rows per block): bit-identical to the plain versions on the CPU.
-    S = 40 leaves 24 lanes of K7's last row group past S; n_pad 384."""
+    mid-run state (n_run 0, 1, 3 and to the fixpoint, ``chunk`` words per
+    item, with and without the prepared index): bit-identical to the
+    plain versions on the CPU.  S = 40 leaves 24 lanes of the last row
+    group past S; n_pad 384."""
     monkeypatch.setattr(tropical.kernel, "CHUNK_WORDS", chunk)
     pw, f, d = _tropical_start(nodes, s, nodes)
     g, w, wd = pw.graph, pw.w_edges, pw.wdense
@@ -432,24 +495,62 @@ def test_tropical_kernels_match_plain(cuda, monkeypatch, s, nodes, bs,
         f, d = want
     assert tropical.fused_minplus_sweep.launches == before[0] + 2
     assert tropical.sparse_relax_sweep.launches == before[1] + 4
-    for rows in (1, 4):
-        monkeypatch.setattr(tropical.kernel, "FUSED_ROWS", rows)
-        for n_run in (0, 1, 3, 60):
-            kw = dict(bs=bs, max_sweeps=max(n_run, 1))
-            want = tropical.fused_minplus_multisweep(f, wd, d, 0, n_run,
-                                                     **kw)
+    before = tropical.fused_minplus_multisweep.launches
+    for n_run in (0, 1, 3, 60):
+        kw = dict(bs=bs, max_sweeps=max(n_run, 1))
+        want = tropical.fused_minplus_multisweep(f, wd, d, 0, n_run, **kw)
+        got = tropical.fused_minplus_multisweep(
+            f.to(cuda), wd.to(cuda), d.to(cuda), 0, n_run,
+            index=index if n_run % 2 else None, **kw)
+        torch.cuda.synchronize()
+        _same(want[:2], got[:2])
+        assert int(want[2]) == int(got[2])
+        assert bool(want[3]) == bool(got[3])
+    assert bool(got[3]) and int(got[2]) < 60        # stopped early
+    assert tropical.fused_minplus_multisweep.launches == before + 4
+
+
+@pytest.mark.parametrize("s", [16, 40, 128, 256])
+@pytest.mark.parametrize("chunk", [1, 5, 16])
+def test_fused_minplus_kernel_over_index_matches_plain(cuda, monkeypatch, s,
+                                                       chunk):
+    """K8 on one cooperative grid over the live-word index (``chunk``
+    words per work item), from the sources of an RMAT graph (hub rows of
+    many chunks), with a prepared index and building its own: n_run 0, 1,
+    3 and to a fixpoint it stops early at, bit-identical to the plain
+    version.  S = 16 and 40 leave dead lanes in the last 32-row group."""
+    monkeypatch.setattr(tropical.kernel, "CHUNK_WORDS", chunk)
+    g = gen.rmat(9, 8, directed=False, seed=s, device="cpu")
+    w = (np.random.default_rng(s).integers(4, 33, g.m_pad) / 8) \
+        .astype(np.float32)
+    pw = prepare_weighted(g, w, device="cpu")
+    n, wd = pw.n_pad, pw.wdense
+    rng = np.random.default_rng(s + chunk)
+    src = torch.from_numpy(rng.choice(g.n_nodes, s, replace=False))
+    f = torch.zeros((s, n), dtype=torch.int8)
+    f[torch.arange(s), src] = 1
+    d = torch.where(f != 0, 0.0, float("inf")).to(torch.float32)
+    index = tropical.finite_words(wd.to(cuda))
+    bs = 8 if s % 16 else 16
+    for n_run in (0, 1, 3, 200):
+        kw = dict(bs=bs, max_sweeps=max(n_run, 1))
+        want = tropical.fused_minplus_multisweep(f, wd, d, 0, n_run, **kw)
+        for idx in (index, None):
             got = tropical.fused_minplus_multisweep(
-                f.to(cuda), wd.to(cuda), d.to(cuda), 0, n_run, **kw)
+                f.to(cuda), wd.to(cuda), d.to(cuda), 0, n_run, index=idx,
+                **kw)
             torch.cuda.synchronize()
             _same(want[:2], got[:2])
             assert int(want[2]) == int(got[2])
             assert bool(want[3]) == bool(got[3])
+    assert bool(got[3]) and int(got[2]) < 200       # stopped early
 
 
 def test_minplus_kernel_on_hub_and_isolated_rows(cuda):
     """K7 where one operand row (the hub) holds most live words and most
     rows hold none, from every source at once: bit-identical to the plain
-    version, with the settled-bound skip live."""
+    version, with the settled-bound skip live; then K8 from that
+    state."""
     g = _hub_isolated()
     w = (np.random.default_rng(3).integers(4, 33, g.m_pad) / 8) \
         .astype(np.float32)
@@ -469,6 +570,19 @@ def test_minplus_kernel_on_hub_and_isolated_rows(cuda):
     torch.cuda.synchronize()
     _same(want, got)
     assert want[0].any()
+    # K8 from the same state: the hub row's chunks spread over warps
+    f = (fd != float("inf")).to(torch.int8)
+    for n_run in (1, 3):
+        kw = dict(bs=32, max_sweeps=n_run)
+        want = tropical.fused_minplus_multisweep(f, pw.wdense, d, 0, n_run,
+                                                 **kw)
+        got = tropical.fused_minplus_multisweep(
+            f.to(cuda), pw.wdense.to(cuda), d.to(cuda), 0, n_run,
+            index=tropical.finite_words(pw.wdense.to(cuda)), **kw)
+        torch.cuda.synchronize()
+        _same(want[:2], got[:2])
+        assert int(want[2]) == int(got[2])
+        assert bool(want[3]) == bool(got[3])
 
 
 @pytest.mark.parametrize("opts", [dict(), dict(mode="dense"),
@@ -488,3 +602,38 @@ def test_weighted_engine_on_card_matches_cpu(cuda, opts):
     assert want.sweeps == got.sweeps
     assert torch.equal(want.direction_counts, got.direction_counts)
     assert float(want.edges_touched) == float(got.edges_touched)
+
+
+def test_operand_indexes_built_once_and_on_card_only(cuda):
+    """The pinned counting push and the fused weighted run over several
+    source batches build their operand's live-word index once per
+    prepared graph on the card (one builder launch, none per batch or
+    sweep), never on the CPU, and equal the CPU runs."""
+    g = gen.rmat(10, 8, directed=False, seed=2, device="cpu")
+    sources = np.arange(0, 1024, 5)                 # 205 sources: 4 batches
+    cfg = CentralityConfig(use_kernel=True, mode="push", source_batch=64)
+    cpu_pg, card_pg = prepare_graph(g, device="cpu"), prepare_graph(
+        g, device=cuda)
+    before = (counting.nonzero_words.launches,
+              counting.fused_counting_sweep.launches)
+    want = counting_apsp(cpu_pg, sources, config=cfg)
+    got = counting_apsp(card_pg, sources, config=cfg)
+    assert counting.nonzero_words.launches == before[0] + 1
+    assert counting.fused_counting_sweep.launches > before[1] + 4
+    assert cpu_pg._adj_index is None and card_pg._adj_index is not None
+    assert torch.equal(want.dist, got.dist.cpu())
+    assert torch.equal(want.sigma, got.sigma.cpu())
+    w = (np.random.default_rng(2).integers(4, 33, g.m_pad) / 8) \
+        .astype(np.float32)
+    wcfg = WeightedConfig(use_kernel=True, fused_steps=-1, source_batch=64)
+    cpu_pw, card_pw = prepare_weighted(g, w, device="cpu"), \
+        prepare_weighted(g, w, device=cuda)
+    before = (tropical.finite_words.launches,
+              tropical.fused_minplus_multisweep.launches)
+    want = weighted_apsp(cpu_pw, sources=sources, config=wcfg)
+    got = weighted_apsp(card_pw, sources=sources, config=wcfg)
+    assert tropical.finite_words.launches == before[0] + 1
+    assert tropical.fused_minplus_multisweep.launches >= before[1] + 4
+    assert cpu_pw._wdense_index is None and card_pw._wdense_index is not None
+    assert torch.equal(want.dist, got.dist.cpu())
+    assert want.sweeps == got.sweeps

@@ -292,13 +292,19 @@ def test_tropical_registry_and_fused_gate():
     # unlike the JAX package, the sparse relax dispatches on the card
     assert ks.interpret_only == frozenset()
     assert ks.dispatchable("sparse", interpret=False)
-    # one K8 block holds only its active-k list: the gate admits the
-    # full-width n_pad the JAX whole-operand VMEM gate refuses
+    # one K8 block holds only its 32 x 32 transpose tile and 32 row
+    # masks, at any n_pad (the state and the work list live in global
+    # memory): the gate admits every n_pad, the full width the JAX
+    # whole-operand VMEM gate refuses and far past it
     assert ks.smem_bytes(form="fused", n=65_664) == \
-        4 * tkern.kernel.LIST_CAP + 4 <= common.SMEM_BUDGET_BYTES
+        ks.smem_bytes(form="fused", n=1 << 24) == \
+        tkern.kernel.FUSED_TILE_BYTES == 4_352 <= common.SMEM_BUDGET_BYTES
+    assert ks.operand_index is tkern.finite_words
     kw = dict(max_steps=9, use_kernel=True, bs=128)
     assert tsweep.resolve_fused_steps("tropical", "dense", fused_steps=-1,
                                       n_pad=65_664, **kw) == 9
+    assert tsweep.resolve_fused_steps("tropical", "dense", fused_steps=-1,
+                                      n_pad=1 << 24, **kw) == 9
     assert tsweep.resolve_fused_steps("tropical", "dense", fused_steps=4,
                                       n_pad=65_664, **kw) == 4
     assert tsweep.resolve_fused_steps("tropical", "sparse", fused_steps=-1,
@@ -427,3 +433,25 @@ def test_weighted_derive_parents_matches_jax(family):
     got = tsweep.derive_parents(tg, _t(dist), weights=lanes)
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
     assert (got.numpy()[np.isfinite(dist) & (dist > 0)] >= 0).all()
+
+
+@pytest.mark.parametrize("n_run", [0, 6, 40])
+def test_fused_minplus_multisweep_with_index_matches_pallas(n_run):
+    """K8 handed the live-word index (built by its plain builder) on the
+    state above: the same new / dist / prod / stopped as without it and
+    as the Pallas kernel.  On the CPU the plain version reads no index."""
+    f, w, dist = _fused_start()
+    kw = dict(bs=64, max_sweeps=max(n_run, 1))
+    want = jkern.fused_minplus_multisweep(
+        jnp.asarray(f), jnp.asarray(w), jnp.asarray(dist), 0, n_run,
+        interpret=True, **kw)
+    plain = tkern.fused_minplus_multisweep(_t(f), _t(w), _t(dist), 0, n_run,
+                                           **kw)
+    got = tkern.fused_minplus_multisweep(
+        _t(f), _t(w), _t(dist), 0, n_run,
+        index=tkern.finite_words_ref(_t(w)), **kw)
+    _same(want[:2], got[:2])
+    _same(tuple(x.numpy() for x in plain[:2]), got[:2])
+    assert int(want[2]) == int(got[2]) == int(plain[2])
+    assert bool(want[3]) == bool(got[3]) == bool(plain[3])
+

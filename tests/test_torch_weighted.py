@@ -215,6 +215,24 @@ def test_weighted_apsp_validates_sources_and_caches_operands():
     assert tw.WeightedConfig(max_sweeps=7).max_steps == 7
 
 
+@pytest.mark.parametrize("config", ["kernel_dense", "dynamic", "fused3",
+                                    "fused_all"])
+def test_cpu_prepared_weighted_graph_builds_no_index(config):
+    """Whatever dense kernel can dispatch (K7 per sweep, the fused K8), a
+    prepared weighted graph on the CPU never builds ``wdense_index``: the
+    plain versions read none.  The results stay the JAX engine's."""
+    jg, w = weighted_family("random_ragged", seed=2)
+    sources = np.arange(min(jg.n_nodes, 16), dtype=np.int32)
+    pw = tw.prepare_weighted(carry(jg), w, device="cpu")
+    cfg = CONFIGS[config]
+    rt = tw.weighted_apsp(pw, sources=sources,
+                          config=tw.WeightedConfig(source_batch=8, **cfg))
+    rj = jw.weighted_apsp(jg, w, sources,
+                          config=jw.WeightedConfig(source_batch=8, **cfg))
+    assert pw._wdense is not None and pw._wdense_index is None
+    assert_same(rj, rt)
+
+
 # --------------------------------------------------------------------------
 # single-source and bucketed drivers
 # --------------------------------------------------------------------------

@@ -61,8 +61,11 @@ def main() -> int:
     fd = torch.where(f != 0, d, torch.tensor(float("inf"), device="cuda"))
     w_min = pw.w_edges.min()
 
+    widx = pw.wdense_index                # built once, as the engine does
+
     def k7():
-        return tropical.fused_minplus_sweep(fd, pw.wdense, d, w_min)
+        return tropical.fused_minplus_sweep(fd, pw.wdense, d, w_min,
+                                            index=widx)
 
     out7, sec = timed(k7)
     print("K7 first", sec, flush=True)
@@ -74,7 +77,7 @@ def main() -> int:
           torch.equal(out7[1], out9[1]), flush=True)
     for n_run in (1, 4):
         out8, sec = timed(lambda: tropical.fused_minplus_multisweep(
-            f, pw.wdense, d, 0, n_run, bs=128, max_sweeps=4))
+            f, pw.wdense, d, 0, n_run, bs=128, max_sweeps=4, index=widx))
         print(f"K8 n_run={n_run}", sec, torch.equal(out8[1], out7[1]),
               int(out8[2]), bool(out8[3]), flush=True)
     _, sec = timed(lambda: tropical.minplus_sweep_ref(fd, pw.wdense, d))
