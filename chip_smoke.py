@@ -17,12 +17,14 @@ against scipy's Dijkstra and a float32 Bellman-Ford replay on the host,
 and holds every kernel bit-identical to its plain PyTorch version at
 full width: on rmat16 after 2 sweeps, and K1-K3 and K9 also on grid256's
 thin frontier after 200 sweeps, where most of their launches run; the
-three live-word index builders that K1 / K2, K5 / K6 and K7 / K8 read
-(``packed_live_words`` on both graphs' packed operands, ``nonzero_words``,
-``finite_words`` on the rmat16 operands) are timed and held to their
-plain versions (phase ``index``).  K1 and K2 also carry ``device_ms``,
-one call replayed from a CUDA graph: the card's time alone, where the
-host takes longer to issue a call than the card to run it.  Each kernel
+four index builders, the live-word indexes that K1 / K2, K5 / K6 and
+K7 / K8 read (``packed_live_words`` on both graphs' packed operands,
+``nonzero_words``, ``finite_words`` on the rmat16 operands) and K9's
+in-lane index (``in_lanes`` on both graphs' lanes), are timed and held
+to their plain versions (phase ``index``).  K1, K2 and K9 also carry
+``device_ms``, one call replayed from a CUDA graph: the card's time
+alone, where the host takes about as long to issue a call as the card
+takes to run it.  Each kernel
 line carries its state and its main-path launches per graph
 (``tools/kernel_table.py`` ranks the kernels from them).  The packed
 bound is printed beside the earlier rule's (phase ``bound_recount``).
@@ -92,11 +94,12 @@ REPLACES = {
     "fused_minplus_sweep": "src/repro/kernels/tropical/kernel.py:128",
     "fused_minplus_multisweep": "src/repro/kernels/tropical/kernel.py:210",
     "sparse_relax_sweep": "src/repro/kernels/tropical/kernel.py:302",
-    # the live-word index builders serve the ports of K1 / K2, K5 / K6
-    # and K7 / K8
+    # the index builders serve the ports of K1 / K2, K5 / K6, K7 / K8
+    # and K9
     "packed_live_words": "src/repro/kernels/bovm/kernel.py:184",
     "nonzero_words": "src/repro/kernels/counting/kernel.py:184",
     "finite_words": "src/repro/kernels/tropical/kernel.py:128",
+    "in_lanes": "src/repro/kernels/tropical/kernel.py:302",
 }
 MULTI_SWEEP_NOTE = "no single PyTorch call computes a multi-sweep block"
 
@@ -258,7 +261,7 @@ def main() -> int:
     from repro_torch.core.frontier import pack_bits
     from repro_torch.graph import generators as gen
     from repro_torch.kernels import _build
-    from repro_torch.kernels import bovm, common, counting, tropical
+    from repro_torch.kernels import bovm, counting, tropical
     from repro_torch.kernels.bovm import ref as R
     from repro_torch.kernels.counting import ref as CR
     from repro_torch.kernels.tropical import ref as TR
@@ -272,7 +275,8 @@ def main() -> int:
                 counting.fused_counting_multisweep, counting.nonzero_words)
     wkernels = (tropical.fused_minplus_sweep,
                 tropical.fused_minplus_multisweep,
-                tropical.sparse_relax_sweep, tropical.finite_words)
+                tropical.sparse_relax_sweep, tropical.finite_words,
+                tropical.in_lanes)
     sources_of = {k.__name__: str(Path(sys.modules[k.__module__].SOURCE)
                                   .relative_to(ROOT))
                   for k in kernels + ckernels + wkernels}
@@ -532,6 +536,8 @@ def main() -> int:
                 h.prepared_weighted().wdense     # operand build = set-up
             if run != "sparse":                  # K7 / K8's index, too
                 h.prepared_weighted().wdense_index
+            if run in ("default", "sparse"):     # and K9's where it runs
+                h.prepared_weighted().relax_index
             before = [k.launches for k in wkernels]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -554,12 +560,12 @@ def main() -> int:
                  sweeps=res.sweeps,
                  direction_counts=res.direction_counts.tolist(),
                  edges_touched=float(res.edges_touched),
-                 launches=got, index_launches=got["finite_words"],
+                 launches=got,
+                 index_launches=got["finite_words"] + got["in_lanes"],
                  dist_checked_rows=int(len(check)))
-            if got["finite_words"]:
-                raise AssertionError(f"weighted/{name}/{run}: the "
-                                     f"live-word index was rebuilt during "
-                                     f"the run")
+            if got["finite_words"] or got["in_lanes"]:
+                raise AssertionError(f"weighted/{name}/{run}: an index "
+                                     f"was rebuilt during the run")
         base = wres["default"]
         for run, r in wres.items():
             if not torch.equal(r.dist, base.dist):
@@ -722,6 +728,47 @@ def main() -> int:
              operand_bytes=operand.numel() * operand.element_size(),
              bitmap_bytes=rows * (operand.shape[1] // per_word) // 8,
              match=True)
+        emit(phase="kernel", **rows_out[-1])
+        return got
+
+    # K9's in-lane index: built once per prepared weighted graph, timed
+    # alone; a target's lanes may come in any order
+    def lane_index_row(graph, g_, lw_):
+        def build():
+            return tropical.in_lanes(g_.src, g_.dst, lw_, n_pad)
+
+        def plain():
+            return TR.in_lanes_ref(g_.src, g_.dst, lw_, n_pad,
+                                   tropical.kernel.HUB_LANES)
+
+        got, want = build(), plain()
+        if not all(torch.equal(a, b) for a, b in zip(
+                TR.in_lanes_sorted(got), TR.in_lanes_sorted(want))):
+            raise AssertionError("in_lanes: index differs from its plain "
+                                 "version")
+        lanes, pieces = int(got.offsets[-1]), got.pieces.shape[0]
+        index_bytes = 8 * (n_pad + 1) + 8 * lanes + 8 * pieces
+        lane_bytes = 12 * g_.m_pad              # src, dst, weight read once
+        t_bytes = (lane_bytes + index_bytes) / HBM_BYTES_PER_S * 1e3
+        rows_out.append(dict(
+            name="in_lanes", route="cuda", source=sources_of["in_lanes"],
+            replaces=REPLACES["in_lanes"], launches=launches["in_lanes"],
+            max_abs_err=0.0, ms=cuda_ms(torch, build, 3),
+            plain_ms=cuda_ms(torch, plain, 1), bound_ms=t_bytes,
+            bound_by="bytes", library_ms=None, match=True,
+            state=f"{graph}, the weighted CSR lanes, n_pad {n_pad}",
+            launches_by_graph=by_graph.get("in_lanes", {}),
+            shape=dict(m_pad=g_.m_pad, n_pad=n_pad, lanes=lanes,
+                       hub_lanes=tropical.kernel.HUB_LANES,
+                       hub_pieces=pieces),
+            library_note="no single PyTorch call builds a CSC (a sort by "
+                         "target is one argsort plus gathers)"))
+        emit(phase="index", name="in_lanes", graph=graph,
+             index_ms=rows_out[-1]["ms"], plain_ms=rows_out[-1]["plain_ms"],
+             bound_ms=t_bytes, lanes=lanes,
+             hub_lanes=tropical.kernel.HUB_LANES,
+             hub_pieces=pieces, index_bytes=index_bytes,
+             lane_bytes=lane_bytes, match=True)
         emit(phase="kernel", **rows_out[-1])
         return got
 
@@ -980,10 +1027,10 @@ def main() -> int:
     f = torch.zeros((s, n_pad), dtype=torch.int8, device="cuda")
     f[torch.arange(s, device="cuda"), wsrc] = 1
     d = torch.where(f != 0, 0.0, float("inf")).to(torch.float32)
-    indptr = common.lane_offsets(g.src, n_pad)
+    ridx = lane_index_row("rmat16", g, lw)
     for _ in range(mid_step):
         f, d = tropical.sparse_relax_sweep(f, d, g.src, g.dst, lw,
-                                           indptr=indptr)
+                                           index=ridx)
     inf = torch.tensor(float("inf"), device="cuda")
     fd = torch.where(f != 0, d, inf)
     w_min = lw.min()
@@ -1047,7 +1094,7 @@ def main() -> int:
         nb, no, _ = minplus_need(f_t, d_t)
         b8, o8 = b8 + nb, o8 + no
         f_t, d_t = tropical.sparse_relax_sweep(f_t, d_t, g.src, g.dst, lw,
-                                               indptr=indptr)
+                                               index=ridx)
         if not bool(f_t.any()):
             break
     record("fused_minplus_multisweep", rmat_multi, k8, k8_plain, k8(),
@@ -1057,7 +1104,7 @@ def main() -> int:
 
     def k9():
         return tropical.sparse_relax_sweep(f, d, g.src, g.dst, lw,
-                                           indptr=indptr)
+                                           index=ridx)
 
     def k9_plain():
         return TR.sparse_relax_ref(f, d, g.src, g.dst, lw)
@@ -1072,11 +1119,11 @@ def main() -> int:
     lib9_note = "index_reduce_ amin on precomputed candidates: scatter only"
     record("sparse_relax_sweep", rmat_state, k9, k9_plain, k9(),
            k9_plain(),
-           s * n_pad * 10 + l9, o7, WORD_OPS_PER_S, 5, lib9,
-           library_note=lib9_note)
+           s * n_pad * 10 + l9, o7, WORD_OPS_PER_S, 20, lib9,
+           library_note=lib9_note, device_ms=graph_ms(torch, k9, 20))
 
     # -- K9 on grid256's deep, thin weighted state ---------------------------
-    del wd, fd, pw, widx
+    del wd, fd, pw, widx, ridx
     torch.cuda.empty_cache()
     pw2 = repro_torch.prepare(graphs["grid256"],
                               weights=lanes_of["grid256"]).prepared_weighted()
@@ -1085,15 +1132,15 @@ def main() -> int:
     f2 = torch.zeros((len(gsrc), n_pad), dtype=torch.int8, device="cuda")
     f2[torch.arange(len(gsrc), device="cuda"), gsrc] = 1
     d2 = torch.where(f2 != 0, 0.0, float("inf")).to(torch.float32)
-    indptr2 = common.lane_offsets(g2.src, n_pad)
+    ridx2 = lane_index_row("grid256", g2, lw2)
     for _ in range(GRID_STEPS):
         f2, d2 = tropical.sparse_relax_sweep(f2, d2, g2.src, g2.dst, lw2,
-                                             indptr=indptr2)
+                                             index=ridx2)
     _, o9g, l9g = minplus_need(f2, d2, *operand_rows(pw2))
 
     def g9():
         return tropical.sparse_relax_sweep(f2, d2, g2.src, g2.dst, lw2,
-                                           indptr=indptr2)
+                                           index=ridx2)
 
     def g9_plain():
         return TR.sparse_relax_ref(f2, d2, g2.src, g2.dst, lw2)
@@ -1108,7 +1155,8 @@ def main() -> int:
     record("sparse_relax_sweep",
            f"grid256, S={len(gsrc)}, after {GRID_STEPS} sweeps", g9,
            g9_plain, g9(), g9_plain(), s * n_pad * 10 + l9g, o9g,
-           WORD_OPS_PER_S, 5, lib9g, library_note=lib9_note)
+           WORD_OPS_PER_S, 20, lib9g, library_note=lib9_note,
+           device_ms=graph_ms(torch, g9, 20))
 
     # launches of the comparisons above do not count: report the main path's
     for row in rows_out:

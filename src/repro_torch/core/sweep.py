@@ -425,7 +425,7 @@ def counting_forms(adj, src_idx, dst_idx, *, n_pad: int = 0, s: int = 0,
 def tropical_forms(wdense, src_idx, dst_idx, w_edges, *, n_pad: int = 0,
                    chunk: int = 128, use_frontier: bool = True,
                    use_kernel: bool = False, bn: int = 128, bk: int = 128,
-                   eb: int = 128, windex=None
+                   eb: int = 128, windex=None, rindex=None
                    ) -> Tuple[Optional[SweepForm], SweepForm]:
     """(dense, sparse) (min,+) sweep forms.
 
@@ -444,11 +444,12 @@ def tropical_forms(wdense, src_idx, dst_idx, w_edges, *, n_pad: int = 0,
              the improved frontier (sound for non-negative weights).
              ``use_frontier=False`` relaxes every edge every sweep
              (reference path only).  Kernel path (batched 2-D state on
-             the card): the sparse relax kernel (K9) over the lanes of
-             the frontier, given the lane offsets of ``src_idx``, which
-             must be in CSR order.  Unlike the JAX package, whose compiled
-             path takes the XLA scatter here, the port dispatches the
-             kernel: min is order-free, so the bits are the same.
+             the card): the sparse relax kernel (K9), a gather over each
+             target's in-lanes, given ``rindex``, the lanes' in-lane
+             index (built by the kernel when ``None``).  Unlike the JAX
+             package, whose compiled path takes the XLA scatter here, the
+             port dispatches the kernel: min is order-free, so the bits
+             are the same.
 
     Fact 1 generalizes: the new frontier is the improved set, and a
     sweep that improves nothing terminates.
@@ -490,11 +491,9 @@ def tropical_forms(wdense, src_idx, dst_idx, w_edges, *, n_pad: int = 0,
                                      index=windex)
                 return new, nd, p
 
-        indptr = kernel_common.lane_offsets(src_idx, n_pad)
-
         def sparse(f, d, p, step):
             new, nd = K["sparse"](f, d, src_idx, dst_idx, w_edges, eb=eb,
-                                  indptr=indptr)
+                                  index=rindex)
             return new, nd, p
 
         return dense, sparse

@@ -11,7 +11,7 @@ forms (``core/sweep.py::tropical_forms``):
            tile skipping, or K8 with fused blocks;
   SPARSE — edge-parallel scatter-min relaxation over CSR lanes (cost
            O(S · m_pad) in the model); kernel path: the sparse relax
-           kernel K9
+           kernel K9, a gather over each target's in-lanes
 
 — chosen per sweep by the occupancy cost model (dynamic regime) or pinned
 per graph by wall-clock calibration of both forms (reference path), as in
@@ -100,8 +100,8 @@ class WeightedConfig(SweepOptions):
 
 @dataclasses.dataclass
 class PreparedWeightedGraph:
-    """Device-resident tropical operands (the dense O(n_pad^2) form is
-    built lazily)."""
+    """Device-resident tropical operands (the dense O(n_pad^2) form and
+    the kernels' indexes are built lazily)."""
     graph: CSRGraph
     w_edges: torch.Tensor  # (m_pad,) float32; +inf on padded lanes
     deg: torch.Tensor      # (n_pad,) float32 out-degrees (0 on pad)
@@ -111,6 +111,8 @@ class PreparedWeightedGraph:
     _wdense: Optional[torch.Tensor] = dataclasses.field(default=None,
                                                         repr=False)
     _wdense_index: Optional[kernel_common.WordIndex] = dataclasses.field(
+        default=None, repr=False)
+    _relax_index: Optional[kernel_common.LaneIndex] = dataclasses.field(
         default=None, repr=False)
 
     @property
@@ -142,6 +144,20 @@ class PreparedWeightedGraph:
             self._wdense_index = kernel_registry.get("tropical") \
                 .operand_index(self.wdense)
         return self._wdense_index
+
+    @property
+    def relax_index(self) -> kernel_common.LaneIndex:
+        """In-lane index of the weighted CSR lanes (their CSC: per target,
+        its in-lanes' sources and weights), which the sparse relax kernel
+        gathers over.  Built once, from the lanes and never from
+        ``wdense`` (a sparse-only run never builds the dense operand), by
+        the tropical kernel set's builder; it is not rebuilt if the lanes
+        are changed in place."""
+        if self._relax_index is None:
+            g = self.graph
+            self._relax_index = kernel_registry.get("tropical").lane_index(
+                g.src, g.dst, self.w_edges, self.n_pad)
+        return self._relax_index
 
 
 def prepare_weighted(g: CSRGraph, weights=None, *, align: int = 128,
@@ -211,7 +227,8 @@ def _run_weighted_batch(wdense, src_idx, dst_idx, w_edges, deg,
                         cfg: WeightedConfig, n_pad: int, max_sweeps: int,
                         use_kernel: bool, forced_dir: Optional[int],
                         fused_steps: int = 0,
-                        windex: Optional[kernel_common.WordIndex] = None
+                        windex: Optional[kernel_common.WordIndex] = None,
+                        rindex: Optional[kernel_common.LaneIndex] = None
                         ) -> S.SweepState:
     s = sources.shape[0]
     m_pad = src_idx.shape[0]
@@ -227,7 +244,8 @@ def _run_weighted_batch(wdense, src_idx, dst_idx, w_edges, deg,
 
     forms = S.tropical_forms(wdense, src_idx, dst_idx, w_edges, n_pad=n_pad,
                              chunk=cfg.chunk, use_kernel=use_kernel,
-                             bn=cfg.bn, bk=cfg.bk, eb=cfg.eb, windex=windex)
+                             bn=cfg.bn, bk=cfg.bk, eb=cfg.eb, windex=windex,
+                             rindex=rindex)
     if forms[0] is None:
         forms = (forms[1], forms[1])  # sparse pinned; keep switch arity 2
 
@@ -257,11 +275,13 @@ def _run_weighted_batch(wdense, src_idx, dst_idx, w_edges, deg,
                         fused=fused, fused_steps=fused_steps)
 
 
-def _card_index(pw: PreparedWeightedGraph, use_kernel: bool):
-    """``wdense``'s live-word index (built once per prepared graph) where
-    the dense kernels run on the card; the plain versions on the CPU read
-    none, so a CPU graph never builds it."""
-    return pw.wdense_index if use_kernel and pw.device.type == "cuda" \
+def _card_index(pw: PreparedWeightedGraph, use_kernel: bool,
+                name: str = "wdense_index"):
+    """The prepared graph's index ``name`` (``wdense_index`` for the dense
+    kernels, ``relax_index`` for the sparse relax; each built once per
+    prepared graph) where the kernels run on the card; the plain versions
+    on the CPU read none, so a CPU graph never builds one."""
+    return getattr(pw, name) if use_kernel and pw.device.type == "cuda" \
         else None
 
 
@@ -284,7 +304,9 @@ def measure_weighted_costs(pw: PreparedWeightedGraph, s: int,
     forms = S.tropical_forms(pw.wdense, pw.graph.src, pw.graph.dst,
                              pw.w_edges, n_pad=n_pad, chunk=cfg.chunk,
                              use_kernel=use_kernel, bn=cfg.bn, bk=cfg.bk,
-                             eb=cfg.eb, windex=_card_index(pw, use_kernel))
+                             eb=cfg.eb, windex=_card_index(pw, use_kernel),
+                             rindex=_card_index(pw, use_kernel,
+                                                "relax_index"))
     result = S.time_sweep_forms(forms, f, dist)
     pw.cost_cache[key] = result
     return result
@@ -343,9 +365,11 @@ def weighted_apsp(g: Union[CSRGraph, PreparedWeightedGraph],
             forced = DENSE      # fused blocks pin the dense form
     # only materialize the O(n_pad^2) dense operand when it can dispatch,
     # and its live-word index when a dense kernel (K7 or the fused K8)
-    # does so on the card
+    # does so on the card; the in-lane index when K9 can
     wdense = pw.wdense if forced in (None, DENSE) else None
     windex = _card_index(pw, use_kernel) if wdense is not None else None
+    rindex = _card_index(pw, use_kernel, "relax_index") \
+        if forced in (None, SPARSE) else None
 
     rows = []
     sweeps = 0
@@ -362,7 +386,8 @@ def weighted_apsp(g: Union[CSRGraph, PreparedWeightedGraph],
                                  valid, cfg=config, n_pad=pw.n_pad,
                                  max_sweeps=max_sweeps,
                                  use_kernel=use_kernel, forced_dir=forced,
-                                 fused_steps=fused_steps, windex=windex)
+                                 fused_steps=fused_steps, windex=windex,
+                                 rindex=rindex)
         rows.append(st.dist[:valid, :n])
         sweeps = max(sweeps, st.step)
         counts = [a + b for a, b in zip(counts, st.dir_counts)]

@@ -56,15 +56,6 @@ def expand_table(table: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
                 .repeat_interleave(cols // gj, 1)
 
 
-def lane_offsets(src_idx: torch.Tensor, n_pad: int) -> torch.Tensor:
-    """(n_pad + 1,) int32 offsets of each node's lanes in ``src_idx``,
-    which must be sorted (CSR order: the padded lanes carry the largest
-    id, the sentinel)."""
-    nodes = torch.arange(n_pad + 1, dtype=src_idx.dtype,
-                         device=src_idx.device)
-    return torch.searchsorted(src_idx, nodes, out_int32=True)
-
-
 class WordIndex(NamedTuple):
     """Per-row compacted list of an operand's live words.
 
@@ -102,6 +93,26 @@ class WordIndex(NamedTuple):
         groups = -(-rows // 32)
         return torch.empty((max(groups * self.work_items(chunk), 1), 4),
                            dtype=torch.int32, device=self.words.device)
+
+
+class LaneIndex(NamedTuple):
+    """The in-lane index of a graph's weighted CSR lanes: their CSC.
+
+    Target j's in-lanes are ``src[offsets[j]:offsets[j + 1]]`` with
+    weights ``w`` at the same positions, in no particular order (the
+    sparse relax takes a min over them, which is order-free).  Lanes
+    weighted +inf (the padded ones) relax nothing and are left out.
+
+    A target with more in-lanes than a threshold (a hub) is also cut into
+    pieces of that many lanes, so that a kernel can spread one hub over
+    many warps: target j's pieces are
+    ``pieces[hub_first[j]:hub_first[j + 1]]``, each a (start, end) range
+    of positions in ``src``."""
+    offsets: torch.Tensor    # (n_pad + 1,) int32
+    src: torch.Tensor        # (offsets[-1],) int32 source ids
+    w: torch.Tensor          # (offsets[-1],) float32 weights
+    hub_first: torch.Tensor  # (n_pad + 1,) int32 first piece of each target
+    pieces: torch.Tensor     # (hub_first[-1], 2) int32 lane ranges
 
 
 # bound on the operand bytes one chunk of the plain index build reads

@@ -29,7 +29,10 @@ class KernelSet:
     tensors (their plain versions): the core layer must not dispatch them
     on the card.  ``operand_index`` builds the live-word index
     (``common.WordIndex``) of the dense operand that a form's kernel reads
-    through its ``index=`` keyword; the prepared graphs build it once.
+    through its ``index=`` keyword, ``lane_index`` the in-lane index
+    (``common.LaneIndex``, the CSC of the CSR lanes) that the sparse
+    form's kernel reads the same way; the prepared graphs build each
+    once.
     """
     semiring: str
     forms: Mapping[str, Callable]
@@ -39,6 +42,7 @@ class KernelSet:
     fused_forms: Mapping[str, Callable] = \
         dataclasses.field(default_factory=dict)
     operand_index: Optional[Callable] = None
+    lane_index: Optional[Callable] = None
 
     def dispatchable(self, form: str, *, interpret: bool) -> bool:
         """May ``form`` run at this execution mode?  ``interpret`` is true

@@ -2,11 +2,12 @@
 // weighted engine's hot path.
 //
 // Three kernels, one per Pallas kernel of src/repro/kernels/tropical/kernel.py,
-// and the builder of the dense operand's live-word index that K7 and K8
-// read.
+// the builder of the dense operand's live-word index that K7 and K8 read,
+// and the builder of the in-lane index that K9 reads.
 // The state is dist (S, n) float32 with +inf for "no path yet"; the dense
 // operand is W (k, n) float32 with +inf for a non-edge, row k = the
-// out-edges of k; the sparse operand is the CSR lane arrays.  Every entry
+// out-edges of k; the sparse operand is the CSR lane arrays, which K9
+// reads through their CSC, the in-lane index.  Every entry
 // point is a plain C function that launches on the given stream and returns
 // cudaGetLastError(); it allocates nothing.
 //
@@ -32,7 +33,11 @@ constexpr int kPushThreads = 256;             // K7 push
 constexpr int kEpilogueThreads = 256;         // K7 epilogue: 32 x 8
 constexpr int kIndexThreads = 256;            // live-word index: 8 rows
 constexpr int kFusedThreads = 256;            // K8: 8 warps
-constexpr int kRelaxThreads = 256;            // K9
+constexpr int kRelaxEntryThreads = 256;       // K9 entry: 8 warps
+constexpr int kGatherThreads = 512;           // K9 gather: 16 warps
+constexpr int kGatherWarps = kGatherThreads / 32;
+constexpr int kRelaxGroups = 4;               // K9: row groups per warp
+constexpr int kInLaneThreads = 256;           // K9's in-lane index
 constexpr int32_t kInfBits = 0x7f800000;      // +inf as int32
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(kInfBits); }
@@ -454,59 +459,294 @@ __global__ void __launch_bounds__(kFusedThreads, 4) fused_minplus_kernel(
   }
 }
 
-// K9 sparse_relax_sweep, first pass.
-// Replaces _sparse_relax_kernel of src/repro/kernels/tropical/kernel.py.
-// Bound: bytes — the frontier, the state in and out, and the CSR lanes
-// of the nodes in any row's frontier.  The TPU kernel relaxes every lane
-// for every row and masks; here one warp takes 32 consecutive nodes u of
-// one row s, ballots which are in the frontier, and for each walks u's
-// out-lanes indptr[u] .. indptr[u + 1] (lanes in CSR order) lane-strided:
-// the candidate dist[s, u] + w[e] is atomically min'd into acc[s, dst[e]]
-// (int32 atomicMin on the float bits, acc initialised to +inf) where it
-// beats dist[s, dst[e]].  Lanes of nodes outside the frontier are never
-// read.
-__global__ void __launch_bounds__(kRelaxThreads) sparse_relax_kernel(
-    const int8_t* __restrict__ frontier, const float* __restrict__ dist,
-    const int32_t* __restrict__ indptr, const int32_t* __restrict__ dst,
-    const float* __restrict__ w, int32_t* __restrict__ acc, int S, int n) {
-  const float inf = inf_f();
-  const int lane = threadIdx.x & 31;
-  const size_t gw = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int wpr = (n + 31) >> 5;                         // warps per row
-  if (gw >= (size_t)S * wpr) return;                     // warp-uniform
-  const int s = (int)(gw / wpr);
-  const int u0 = (int)(gw % wpr) * 32;
-  const size_t rowb = (size_t)s * n;
-  const int u = u0 + lane;
-  const bool act = u < n && frontier[rowb + u] != 0;
-  uint32_t mask = __ballot_sync(0xffffffffu, act);
-  while (mask) {
-    const int b = __ffs(mask) - 1;
-    mask &= mask - 1;
-    const int uu = u0 + b;
-    const float du = dist[rowb + uu];
-    if (du == inf) continue;                             // warp-uniform
-    const int end = indptr[uu + 1];
-    for (int e = indptr[uu] + lane; e < end; e += 32) {
-      const float c = __fadd_rn(du, w[e]);
-      const int j = dst[e];
-      if (c < dist[rowb + j]) atomicMin(acc + rowb + j, __float_as_int(c));
+// K9's in-lane index (built once per prepared weighted graph; the plain
+// version is ref.in_lanes_ref): the CSC of the weighted CSR lanes.  One
+// thread per lane, grid-stride.  Count pass (fill = 0): counts[dst] += 1
+// for every lane with a weight below +inf (a padded lane is +inf and
+// relaxes nothing), counts[n] += 1 for such a lane whose source or target
+// lies outside [0, n).  Fill pass (fill = 1): `cur` holds each target's
+// first slot (the prefix sum of the counts); the lane takes the next slot
+// of its target by atomicAdd and writes its source and weight there.  The
+// order within a target is the order the atomics land in, which the
+// gather does not depend on (min is order-free).  Bound: bytes — the
+// lanes once per pass, the index written once.
+__global__ void __launch_bounds__(kInLaneThreads) in_lanes_kernel(
+    const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
+    const float* __restrict__ w, int m, int n, int32_t* __restrict__ cur,
+    int32_t* __restrict__ out_src, float* __restrict__ out_w, int fill) {
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < m;
+       e += gridDim.x * blockDim.x) {
+    const float we = w[e];
+    if (!(we < inf_f())) continue;                       // padded lane
+    const int s = src[e], j = dst[e];
+    if ((unsigned)s >= (unsigned)n || (unsigned)j >= (unsigned)n) {
+      if (!fill) atomicAdd(cur + n, 1);
+      continue;
+    }
+    if (!fill) {
+      atomicAdd(cur + j, 1);
+    } else {
+      const int p = atomicAdd(cur + j, 1);
+      out_src[p] = s;
+      out_w[p] = we;
     }
   }
 }
 
-// K9, second pass: new = acc < dist, dist = acc there.
-__global__ void __launch_bounds__(kRelaxThreads) relax_epilogue_kernel(
-    const float* __restrict__ dist, const int32_t* __restrict__ acc,
-    int8_t* __restrict__ new_out, float* __restrict__ dist_out,
-    size_t total) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const float a = __int_as_float(acc[i]);
-    const float d = dist[i];
+// K9 sparse_relax_sweep, entry pass.
+// Replaces _sparse_relax_kernel of src/repro/kernels/tropical/kernel.py
+// (with the hub and gather passes below; the bound and the design are
+// given at the gather).
+// The frontier-masked distances go node-major: fd_t[u, r] = dist[r, u]
+// where frontier[r, u] != 0 and the distance is finite, else +inf, in an
+// (n, Sp) array (Sp = S rounded up to 32, the dead lanes +inf), through a
+// 32 x 128 shared-memory tile (a lane reads 4 nodes of a row: 16 bytes of
+// dist, 4 of the frontier); and one bit per (group of 32 rows, node), set
+// where any row of the group holds the node in its frontier at a finite
+// distance, packed 32 nodes a word: fbits (G, n / 32).  A frontier entry
+// at +inf relaxes nothing (inf + w = inf), so dropping it changes no bit
+// of the result.  The line of a node whose bit is clear is not written:
+// the gather reads only lines whose bit is set.  One block per (128 nodes,
+// row group).
+__global__ void __launch_bounds__(kRelaxEntryThreads) relax_entry_kernel(
+    const int8_t* __restrict__ frontier, const float* __restrict__ dist,
+    float* __restrict__ fd_t, uint32_t* __restrict__ fbits, int S, int n) {
+  constexpr int kNodes = 128;                   // 4 nodes a lane
+  constexpr int kWarps = kRelaxEntryThreads / 32;
+  __shared__ float tile[32][kNodes + 1];
+  __shared__ uint32_t half[2 * kWarps];         // 16 nodes' bits a warp
+  const float inf = inf_f();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j0 = blockIdx.x * kNodes, g = blockIdx.y;
+  const int Sp = gridDim.y * 32;
+  const bool in = j0 + 4 * lane < n;
+#pragma unroll
+  for (int i = warp; i < 32; i += kWarps) {
+    const int r = 32 * g + i;
+    float4 d4 = make_float4(inf, inf, inf, inf);
+    char4 f4 = make_char4(0, 0, 0, 0);
+    if (r < S && in) {
+      const size_t idx = (size_t)r * n + j0 + 4 * lane;
+      d4 = *reinterpret_cast<const float4*>(dist + idx);
+      f4 = *reinterpret_cast<const char4*>(frontier + idx);
+    }
+    tile[i][4 * lane] = f4.x && finite_f(d4.x) ? d4.x : inf;
+    tile[i][4 * lane + 1] = f4.y && finite_f(d4.y) ? d4.y : inf;
+    tile[i][4 * lane + 2] = f4.z && finite_f(d4.z) ? d4.z : inf;
+    tile[i][4 * lane + 3] = f4.w && finite_f(d4.w) ? d4.w : inf;
+  }
+  __syncthreads();
+  // each warp writes 16 consecutive nodes' lines; a live entry is finite
+  uint32_t bits = 0u;
+#pragma unroll
+  for (int k = 0; k < kNodes / kWarps; ++k) {
+    const int jj = warp * (kNodes / kWarps) + k;
+    const float v = tile[lane][jj];
+    const bool any = __any_sync(0xffffffffu, finite_f(v));
+    if (any) {                                           // warp-uniform
+      fd_t[(size_t)(j0 + jj) * Sp + 32 * g + lane] = v;
+      bits |= 1u << k;
+    }
+  }
+  if (lane == 0) half[warp] = bits;
+  __syncthreads();
+  if (threadIdx.x < kNodes / 32 && j0 + 32 * (int)threadIdx.x < n)
+    fbits[(size_t)g * (n >> 5) + (j0 >> 5) + threadIdx.x] =
+        half[2 * threadIdx.x] | (half[2 * threadIdx.x + 1] << 16);
+}
+
+// One warp's walk over the in-lanes lo .. hi of one target, for up to
+// kRelaxGroups row groups g0 .. g0 + gn - 1 (each a lane per row): a[gg] =
+// the min over the lanes of fd_t[src, row] + w.  Each chunk of 32 lanes is
+// loaded once for all the groups (coalesced), the next chunk while this
+// one is walked; a lane whose source has no row of any of the groups in
+// its frontier (fbits) is dropped, the rest are compacted into the warp's
+// stage with their groups' bits, and their fd_t lines (one 128-byte line
+// per group: its 32 rows of one source) are loaded two lanes at a time,
+// up to 2 * kRelaxGroups lines in flight.
+__device__ __forceinline__ void relax_walk(
+    int lo, int hi, const int32_t* __restrict__ isrc,
+    const float* __restrict__ iw, const uint32_t* __restrict__ fbits,
+    const float* __restrict__ fd_t, int g0, int gn, int Sp, int nw,
+    int2* stage, int lane, float (&a)[kRelaxGroups]) {
+  const float inf = inf_f();
+  int s_next = 0;
+  float w_next = inf;
+  if (lo + lane < hi) {
+    s_next = __ldg(isrc + lo + lane);
+    w_next = __ldg(iw + lo + lane);
+  }
+  for (int base = lo; base < hi; base += 32) {          // warp-uniform
+    const int s = s_next;
+    const float w = w_next;
+    const bool in = base + lane < hi;
+    if (base + 32 + lane < hi) {
+      s_next = __ldg(isrc + base + 32 + lane);
+      w_next = __ldg(iw + base + 32 + lane);
+    }
+    uint32_t gm = 0u;                           // groups with s active
+#pragma unroll
+    for (int gg = 0; gg < kRelaxGroups; ++gg)
+      if (in && gg < gn &&
+          ((__ldg(fbits + (size_t)(g0 + gg) * nw + (s >> 5)) >> (s & 31)) &
+           1u))
+        gm |= 1u << gg;
+    const uint32_t m = __ballot_sync(0xffffffffu, gm != 0u);
+    if (!m) continue;                                    // warp-uniform
+    if (gm)
+      stage[__popc(m & ((1u << lane) - 1u))] =
+          make_int2((s << kRelaxGroups) | (int)gm, __float_as_int(w));
+    __syncwarp();
+    const int cnt = __popc(m);
+    for (int p = 0; p < cnt; p += 2) {
+      float d[2][kRelaxGroups];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int2 sw = p + k < cnt ? stage[p + k] : make_int2(0, 0);
+        const float* line = fd_t + (size_t)(sw.x >> kRelaxGroups) * Sp +
+                            32 * g0 + lane;
+#pragma unroll
+        for (int gg = 0; gg < kRelaxGroups; ++gg)
+          d[k][gg] = (sw.x >> gg) & 1 ? __ldg(line + 32 * gg) : inf;
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const float wk =
+            p + k < cnt ? __int_as_float(stage[p + k].y) : inf;
+#pragma unroll
+        for (int gg = 0; gg < kRelaxGroups; ++gg) {
+          const float c = __fadd_rn(d[k][gg], wk);
+          a[gg] = c < a[gg] ? c : a[gg];
+        }
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// K9, hub pass (launched only where the index lists pieces): a target with
+// more than the index's `hub` in-lanes (RMAT's hubs: up to 9,729 in-lanes,
+// 59,247 in rmat16's lowest 32 ids) is cut into pieces of `hub` lanes,
+// listed once per prepared graph in the in-lane index, and every piece is
+// walked by a warp of its own anywhere on the card, for up to kRelaxGroups
+// row groups; its partial mins go to hpart (P, Sp).  One warp walking a
+// whole hub, or one block walking a tile of hubs, would be the launch's
+// critical path.
+__global__ void __launch_bounds__(kGatherThreads, 4) relax_pieces_kernel(
+    const float* __restrict__ fd_t, const uint32_t* __restrict__ fbits,
+    const int32_t* __restrict__ isrc, const float* __restrict__ iw,
+    const int2* __restrict__ pieces, float* __restrict__ hpart, int P, int S,
+    int n) {
+  __shared__ int2 stage[kGatherWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int p = blockIdx.x * kGatherWarps + warp;
+  if (p >= P) return;                                    // warp-uniform
+  const int G = (S + 31) >> 5, Sp = G << 5;
+  const int g0 = blockIdx.y * kRelaxGroups, gn = min(kRelaxGroups, G - g0);
+  const int2 pc = __ldg(pieces + p);
+  float a[kRelaxGroups];
+#pragma unroll
+  for (int gg = 0; gg < kRelaxGroups; ++gg) a[gg] = inf_f();
+  relax_walk(pc.x, pc.y, isrc, iw, fbits, fd_t, g0, gn, Sp, n >> 5,
+             stage[warp], lane, a);
+#pragma unroll
+  for (int gg = 0; gg < kRelaxGroups; ++gg)
+    if (gg < gn) hpart[(size_t)p * Sp + 32 * (g0 + gg) + lane] = a[gg];
+}
+
+// K9 sparse_relax_sweep, gather pass.
+// Bound: bytes — the state once (frontier and dist in, new and dist out)
+// and the lanes of the sources in any row's frontier; an add and a min
+// per (row, lane) with an active source.  The TPU kernel scatters every
+// lane's candidate into a whole-state accumulator.  A scatter on this card
+// costs one L2 request per (lane, row): a 32-byte sector of dist at a
+// random column, and an atomic where the candidate wins (rmat16's state
+// after 2 sweeps of 128 rows: 148 M pairs, 43 M wins).  A gather over
+// each target's in-lanes instead reads one 128-byte fd_t line per
+// (in-lane, group of 32 rows) whose source is active (7.2 M there), takes
+// the min in a register, and writes each (target, row) once: no atomics,
+// no accumulator to fill, no transpose of candidates.
+// One block per (tile of 32 targets, up to kRelaxGroups row groups), a
+// lane per row.  A warp walks each target of at most `hub` in-lanes for
+// all the block's groups at once (its lanes, offsets and frontier bits
+// loaded once); for a hub it takes the min of the hub pass's partials
+// (hub_first[t] .. hub_first[t + 1] in hpart).  The block then holds the
+// mins in shared memory, compares them with dist (copied into shared
+// memory by cp.async while the warps walk) and writes new and dist_out
+// row-major (32 targets of a row, coalesced).  Min is exact and
+// order-free, so the bits equal the plain version's in any order of the
+// lanes.
+__global__ void __launch_bounds__(kGatherThreads, 3) relax_gather_kernel(
+    const float* __restrict__ fd_t, const uint32_t* __restrict__ fbits,
+    const int32_t* __restrict__ off, const int32_t* __restrict__ isrc,
+    const float* __restrict__ iw, const int32_t* __restrict__ hub_first,
+    const float* __restrict__ hpart, const float* __restrict__ dist,
+    int8_t* __restrict__ new_out, float* __restrict__ dist_out, int S,
+    int n) {
+  __shared__ float acc[kRelaxGroups][32][33];   // [group][target][row]
+  __shared__ __align__(16) float dbuf[kRelaxGroups * 32][32];  // [row][t]
+  __shared__ int2 stage[kGatherWarps][32];
+  const float inf = inf_f();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j0 = blockIdx.x * 32;
+  const int G = (S + 31) >> 5, Sp = G << 5;
+  const int g0 = blockIdx.y * kRelaxGroups, gn = min(kRelaxGroups, G - g0);
+  const int rows = min(32 * gn, S - 32 * g0);
+  // the epilogue's dist rows, copied into shared memory while the warps
+  // walk (cp.async: no register waits on them)
+  for (int q = threadIdx.x; q < rows * 8; q += kGatherThreads) {
+    const int i = q >> 3, c = (q & 7) * 4;
+    const float* src = dist + (size_t)(32 * g0 + i) * n + j0 + c;
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(&dbuf[i][c]);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                 "l"(src));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  // the tile's offsets and first pieces, a target per lane
+  const int lo_t = __ldg(off + j0 + lane), hi_t = __ldg(off + j0 + lane + 1);
+  const int pf_t = __ldg(hub_first + j0 + lane);
+  const int pl_t = __ldg(hub_first + j0 + lane + 1);
+  for (int t = warp; t < 32; t += kGatherWarps) {
+    const int p0 = __shfl_sync(0xffffffffu, pf_t, t);
+    const int p1 = __shfl_sync(0xffffffffu, pl_t, t);
+    float a[kRelaxGroups];
+#pragma unroll
+    for (int gg = 0; gg < kRelaxGroups; ++gg) a[gg] = inf;
+    if (p0 == p1) {                                      // warp-uniform
+      relax_walk(__shfl_sync(0xffffffffu, lo_t, t),
+                 __shfl_sync(0xffffffffu, hi_t, t), isrc, iw, fbits, fd_t,
+                 g0, gn, Sp, n >> 5, stage[warp], lane, a);
+    } else {
+      const float* hp = hpart + 32 * g0 + lane;
+      for (int p = p0; p < p1; p += 2) {                 // 2 pieces at once
+        float b[2][kRelaxGroups];
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+#pragma unroll
+          for (int gg = 0; gg < kRelaxGroups; ++gg)
+            b[k][gg] = p + k < p1 && gg < gn
+                           ? __ldg(hp + (size_t)(p + k) * Sp + 32 * gg)
+                           : inf;
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+#pragma unroll
+          for (int gg = 0; gg < kRelaxGroups; ++gg)
+            a[gg] = b[k][gg] < a[gg] ? b[k][gg] : a[gg];
+      }
+    }
+#pragma unroll
+    for (int gg = 0; gg < kRelaxGroups; ++gg) acc[gg][t][lane] = a[gg];
+  }
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+  // new = acc < dist, dist = acc there; row i of the block, target lane
+  for (int i = warp; i < rows; i += kGatherWarps) {
+    const size_t idx = (size_t)(32 * g0 + i) * n + j0 + lane;
+    const float a = acc[i >> 5][lane][i & 31];
+    const float d = dbuf[i][lane];
     const bool nw = a < d;
-    new_out[i] = nw ? 1 : 0;
-    dist_out[i] = nw ? a : d;
+    new_out[idx] = nw ? 1 : 0;
+    dist_out[idx] = nw ? a : d;
   }
 }
 
@@ -625,27 +865,59 @@ int dawn_fused_minplus_multisweep(
   return (int)cudaGetLastError();
 }
 
-// indptr: (n + 1,) int32 lane offsets of each node's out-lanes, dst / w:
-// the lanes in that order; acc: (S, n) int32 holding the bits of +inf.
+// K9's in-lane index.  src / dst / w: the m CSR lanes.  Count pass
+// (fill 0): cur (n + 1,) int32, zeroed; it gets each target's in-lanes
+// below +inf weight, and at cur[n] those whose source or target lies
+// outside [0, n).  Fill pass (fill 1): cur (n,) int32 = each target's
+// first slot; out_src / out_w: room for the counted lanes.
+int dawn_tropical_in_lanes(const void* src, const void* dst, const void* w,
+                           void* cur, void* out_src, void* out_w, int m,
+                           int n, int fill, void* stream) {
+  if (m < 0 || n < 1) return (int)cudaErrorInvalidValue;
+  if (m == 0) return 0;
+  int blocks = (m + kInLaneThreads - 1) / kInLaneThreads;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  in_lanes_kernel<<<blocks, kInLaneThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)src, (const int32_t*)dst, (const float*)w, m, n,
+      (int32_t*)cur, (int32_t*)out_src, (float*)out_w, fill);
+  return (int)cudaGetLastError();
+}
+
+// K9.  n a multiple of 32; off / isrc / iw / hub_first / pieces: the
+// in-lane index (off, hub_first (n + 1,) int32; pieces (P, 2) int32, the
+// lane range of each hub piece); fd_t: (n, Sp) float32 scratch, Sp = S
+// rounded up to 32; fbits: (Sp / 32, n / 32) uint32 scratch; hpart:
+// (P, Sp) float32 scratch (unused where P = 0); n < 2^27 (a staged
+// source id carries its row groups' bits).
 int dawn_sparse_relax(const void* frontier, const void* dist,
-                      const void* indptr, const void* dst, const void* w,
-                      void* acc, void* new_out, void* dist_out, int S, int n,
-                      void* stream) {
-  if (S < 1 || n < 1) return (int)cudaErrorInvalidValue;
+                      const void* off, const void* isrc, const void* iw,
+                      const void* hub_first, const void* pieces, void* fd_t,
+                      void* fbits, void* hpart, void* new_out,
+                      void* dist_out, int S, int n, int P, void* stream) {
+  if (S < 1 || n < 32 || n % 32 || n >= (1 << (31 - kRelaxGroups)) ||
+      P < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t warps = (size_t)S * ((n + 31) / 32);
-  const size_t blocks = (warps * 32 + kRelaxThreads - 1) / kRelaxThreads;
-  sparse_relax_kernel<<<(unsigned)blocks, kRelaxThreads, 0, st>>>(
-      (const int8_t*)frontier, (const float*)dist, (const int32_t*)indptr,
-      (const int32_t*)dst, (const float*)w, (int32_t*)acc, S, n);
+  const int G = (S + 31) / 32;
+  const int GB = (G + kRelaxGroups - 1) / kRelaxGroups;
+  relax_entry_kernel<<<dim3((n + 127) / 128, G), kRelaxEntryThreads, 0, st>>>(
+      (const int8_t*)frontier, (const float*)dist, (float*)fd_t,
+      (uint32_t*)fbits, S, n);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t total = (size_t)S * n;
-  size_t eblocks = (total + kRelaxThreads - 1) / kRelaxThreads;
-  if (eblocks > 132 * 32) eblocks = 132 * 32;
-  relax_epilogue_kernel<<<(unsigned)eblocks, kRelaxThreads, 0, st>>>(
-      (const float*)dist, (const int32_t*)acc, (int8_t*)new_out,
-      (float*)dist_out, total);
+  if (P > 0) {
+    relax_pieces_kernel<<<dim3((P + kGatherWarps - 1) / kGatherWarps, GB),
+                          kGatherThreads, 0, st>>>(
+        (const float*)fd_t, (const uint32_t*)fbits, (const int32_t*)isrc,
+        (const float*)iw, (const int2*)pieces, (float*)hpart, P, S, n);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  relax_gather_kernel<<<dim3(n / 32, GB), kGatherThreads, 0, st>>>(
+      (const float*)fd_t, (const uint32_t*)fbits, (const int32_t*)off,
+      (const int32_t*)isrc, (const float*)iw, (const int32_t*)hub_first,
+      (const float*)hpart, (const float*)dist, (int8_t*)new_out,
+      (float*)dist_out, S, n);
   return (int)cudaGetLastError();
 }
 

@@ -8,14 +8,16 @@ divisibility checks.
                             the settled-bound o_occ -> (new, dist)
   fused_minplus_multisweep  K8 — up to ``n_run`` min-plus sweeps per
                             launch -> (new, dist, prod, stopped)
-  sparse_relax_sweep        K9 — edge-parallel relax over the CSR lanes
-                            of the frontier -> (new, dist)
+  sparse_relax_sweep        K9 — the relax over the CSR lanes of the
+                            frontier, a gather over each target's
+                            in-lanes -> (new, dist)
 
-and the builder of the dense operand's live-word index that K7 and K8
-read:
+and the builders of the indexes they read:
 
   finite_words              (k, n) f32 operand -> common.WordIndex of its
-                            16-byte words holding a finite weight
+                            16-byte words holding a finite weight (K7, K8)
+  in_lanes                  the CSR lanes -> common.LaneIndex, their CSC
+                            (K9)
 
 For tensors on the CPU each wrapper computes its plain version
 (``ref.py``).  For tensors on the card it checks dtype, shape, contiguity
@@ -47,13 +49,16 @@ PUSH_BLOCKS_PER_SM = 8  # K7: push blocks of 256 threads per SM
 FUSED_BLOCKS_PER_SM = 8  # K8: cooperative blocks of 256 threads per SM,
                          # capped at what the SM holds
 FUSED_TILE_BYTES = 4 * (32 * 33 + 32)   # K8: one block's transpose tile
+HUB_LANES = 64          # K9: a target with more in-lanes is cut into
+                        # pieces of this many, each walked by its own warp
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "dawn_minplus_sweep": [_P] * 13 + [_I] * 8 + [_P],
     "dawn_tropical_live_words": [_P] * 3 + [_I] * 2 + [_P],
     "dawn_fused_minplus_multisweep": [_P] * 15 + [_I] * 5 + [_P],
-    "dawn_sparse_relax": [_P] * 8 + [_I] * 2 + [_P],
+    "dawn_tropical_in_lanes": [_P] * 6 + [_I] * 3 + [_P],
+    "dawn_sparse_relax": [_P] * 12 + [_I] * 3 + [_P],
 }
 
 
@@ -69,7 +74,7 @@ def _lib() -> ctypes.CDLL:
 
 def reset_launches() -> None:
     for fn in (fused_minplus_sweep, fused_minplus_multisweep,
-               sparse_relax_sweep, finite_words):
+               sparse_relax_sweep, finite_words, in_lanes):
         fn.launches = 0
 
 
@@ -237,25 +242,92 @@ def fused_minplus_multisweep(frontier: torch.Tensor, wdense: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# K9: the edge-parallel sparse relax
+# K9: the sparse relax, a gather over the in-lane index
 # --------------------------------------------------------------------------
+
+def in_lanes(src_idx: torch.Tensor, dst_idx: torch.Tensor,
+             w_edges: torch.Tensor, n_pad: int) -> common.LaneIndex:
+    """The in-lane index of the CSR lanes (``common.LaneIndex``): per
+    target, its in-lanes' sources and weights, the lanes weighted +inf
+    left out, and the targets with more than :data:`HUB_LANES` in-lanes
+    cut into pieces of that many lanes.  Built once per prepared weighted
+    graph (``PreparedWeightedGraph.relax_index``), from the lanes alone;
+    on the card a count pass and a fill pass at the prefix-summed
+    offsets, which leave each target's lanes in no particular order
+    (``ref.in_lanes_sorted`` compares two builds).  Raises on a lane id
+    outside [0, n_pad)."""
+    m = src_idx.shape[0]
+    if dst_idx.shape != (m,) or w_edges.shape != (m,):
+        raise ValueError(f"lanes: shapes {tuple(src_idx.shape)}, "
+                         f"{tuple(dst_idx.shape)}, {tuple(w_edges.shape)}")
+    if not w_edges.is_cuda:
+        return ref.in_lanes_ref(src_idx, dst_idx, w_edges, n_pad,
+                                HUB_LANES)
+    common.check_cuda(src_idx=(src_idx, torch.int32),
+                      dst_idx=(dst_idx, torch.int32),
+                      w_edges=(w_edges, torch.float32))
+    dev = w_edges.device
+    counts = torch.zeros(n_pad + 1, dtype=torch.int32, device=dev)
+    common.launch(_lib(), "dawn_tropical_in_lanes", dev, src_idx.data_ptr(),
+                  dst_idx.data_ptr(), w_edges.data_ptr(), counts.data_ptr(),
+                  None, None, m, n_pad, 0)
+    offsets = torch.zeros(n_pad + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(counts[:n_pad], 0)
+    total, bad = torch.stack([offsets[-1], counts[n_pad].long()]).tolist()
+    if bad:
+        raise ValueError(f"lane ids outside [0, {n_pad})")
+    offsets = offsets.to(torch.int32)
+    cur = offsets[:n_pad].clone()
+    src = torch.empty(max(total, 1), dtype=torch.int32, device=dev)
+    w = torch.empty(max(total, 1), dtype=torch.float32, device=dev)
+    common.launch(_lib(), "dawn_tropical_in_lanes", dev, src_idx.data_ptr(),
+                  dst_idx.data_ptr(), w_edges.data_ptr(), cur.data_ptr(),
+                  src.data_ptr(), w.data_ptr(), m, n_pad, 1)
+    in_lanes.launches += 1
+    return common.LaneIndex(offsets, src[:total], w[:total],
+                            *ref.hub_pieces(offsets, HUB_LANES))
+
+
+def _lane_parts(index: common.LaneIndex, n_pad: int) -> dict:
+    """The in-lane index a K9 call was handed fits the state's shape:
+    offsets and first pieces of shape (n_pad + 1,), sources and weights
+    of one length, (P, 2) pieces.  Returns its tensors with the dtype each
+    must have (``common.check_cuda``'s arguments)."""
+    for name in ("offsets", "hub_first"):
+        if getattr(index, name).shape != (n_pad + 1,):
+            raise ValueError(f"index: {name} of shape "
+                             f"{tuple(getattr(index, name).shape)}, "
+                             f"expected ({n_pad + 1},)")
+    if index.src.shape != index.w.shape or index.src.dim() != 1:
+        raise ValueError("index: expected a weight beside each source")
+    if index.pieces.dim() != 2 or index.pieces.shape[1] != 2:
+        raise ValueError(f"index: pieces of shape "
+                         f"{tuple(index.pieces.shape)}, expected (P, 2)")
+    return {"offsets": (index.offsets, torch.int32),
+            "src": (index.src, torch.int32), "w": (index.w, torch.float32),
+            "hub_first": (index.hub_first, torch.int32),
+            "pieces": (index.pieces, torch.int32)}
+
 
 def sparse_relax_sweep(frontier: torch.Tensor, dist: torch.Tensor,
                        src_idx: torch.Tensor, dst_idx: torch.Tensor,
                        w_edges: torch.Tensor, *, eb: int = 128,
-                       indptr: Optional[torch.Tensor] = None):
-    """One edge-parallel (min,+) relax sweep (K9).  frontier (S, n_pad)
+                       index: Optional[common.LaneIndex] = None):
+    """One (min,+) relax sweep over the CSR lanes (K9).  frontier (S, n_pad)
     int8, dist (S, n_pad) f32, src/dst (m_pad,) int32 lanes (sentinel-
     padded, indices < n_pad), w_edges (m_pad,) f32 (+inf padded lanes,
     weights >= 0).  m_pad % eb == 0 (``eb`` is kept for the JAX
-    signature; the kernel walks lanes per frontier node).  Returns
-    (new int8, dist f32).
+    signature); on the card also n_pad % 32 == 0 and n_pad < 2^27.
+    Returns (new int8, dist f32).
 
-    ``indptr`` ((n_pad + 1,) int32, ``common.lane_offsets``) declares the
-    lanes sorted by ``src`` (CSR order) and gives each node's lane range;
-    without it the wrapper sorts the lanes itself (min is order-free, so
-    the result is the same).  The card's version skips every lane whose
-    source is outside the frontier."""
+    ``index`` is the lanes' in-lane index (:func:`in_lanes`); without it
+    the wrapper builds it, on the card only (the plain version takes
+    none).  On the card an entry kernel turns the frontier-masked state
+    node-major, a hub kernel walks the index's pieces of the targets with
+    the most in-lanes, and a gather kernel takes, per target and group of
+    32 rows, the min over the target's in-lanes (or its pieces' partial
+    mins) whose source is in some row's frontier; min is order-free, so
+    the lanes' order changes no bit."""
     s, n_pad = frontier.shape
     m_pad = src_idx.shape[0]
     if dist.shape != (s, n_pad) or dst_idx.shape != (m_pad,) or \
@@ -265,31 +337,44 @@ def sparse_relax_sweep(frontier: torch.Tensor, dist: torch.Tensor,
                          f"{tuple(dst_idx.shape)}, {tuple(w_edges.shape)}")
     if m_pad % eb:
         raise ValueError(f"m_pad={m_pad} is not a multiple of eb={eb}")
+    parts = {} if index is None else _lane_parts(index, n_pad)
     if not dist.is_cuda:
+        for name, (t, dtype) in parts.items():
+            if t.dtype != dtype or t.device != dist.device:
+                raise ValueError(f"index: {name} must be {dtype} on "
+                                 f"{dist.device}, got {t.dtype} on "
+                                 f"{t.device}")
         return ref.sparse_relax_ref(frontier, dist, src_idx, dst_idx,
                                     w_edges)
-    if indptr is None:
-        order = torch.argsort(src_idx, stable=True)
-        src_idx, dst_idx, w_edges = (src_idx[order], dst_idx[order],
-                                     w_edges[order])
-        indptr = common.lane_offsets(src_idx, n_pad)
-    common.check_cuda(frontier=(frontier, torch.int8),
-                      dist=(dist, torch.float32),
-                      indptr=(indptr, torch.int32),
-                      dst_idx=(dst_idx, torch.int32),
-                      w_edges=(w_edges, torch.float32))
-    if indptr.shape != (n_pad + 1,):
-        raise ValueError(f"indptr: shape {tuple(indptr.shape)}, expected "
-                         f"({n_pad + 1},)")
+    if n_pad % 32 or n_pad >= 1 << 27:
+        raise ValueError(f"the kernel needs n_pad % 32 == 0 and n_pad < "
+                         f"2^27, got {n_pad}")
     dev = dist.device
-    acc = torch.full((s, n_pad), float("inf"), dtype=torch.float32,
-                     device=dev)
+    if index is None:
+        index = in_lanes(src_idx, dst_idx, w_edges, n_pad)
+        parts = _lane_parts(index, n_pad)
+    # dtypes, one device, contiguity and alignment, index and state at once
+    common.check_cuda(frontier=(frontier, torch.int8),
+                      dist=(dist, torch.float32), **parts)
+    sp = 32 * -(-s // 32)                    # node-major rows, 32 a group
+    npieces = index.pieces.shape[0]
+    # one scratch buffer (an allocation costs the host more than the card
+    # takes for a thin sweep): fd_t (n_pad, sp) f32, hpart (P, sp) f32,
+    # fbits (sp / 32, n_pad / 32) uint32, each 128-byte aligned
+    fd_words, hp_words = n_pad * sp, max(npieces, 1) * sp
+    scratch = torch.empty(fd_words + hp_words + sp * n_pad // 1024,
+                          dtype=torch.float32, device=dev)
+    fd_t = scratch.data_ptr()
+    hpart = fd_t + 4 * fd_words
+    fbits = hpart + 4 * hp_words
     new = torch.empty((s, n_pad), dtype=torch.int8, device=dev)
     dist_out = torch.empty_like(dist)
     common.launch(_lib(), "dawn_sparse_relax", dev, frontier.data_ptr(),
-                  dist.data_ptr(), indptr.data_ptr(), dst_idx.data_ptr(),
-                  w_edges.data_ptr(), acc.data_ptr(), new.data_ptr(),
-                  dist_out.data_ptr(), s, n_pad)
+                  dist.data_ptr(), index.offsets.data_ptr(),
+                  index.src.data_ptr(), index.w.data_ptr(),
+                  index.hub_first.data_ptr(), index.pieces.data_ptr(),
+                  fd_t, fbits, hpart, new.data_ptr(), dist_out.data_ptr(), s,
+                  n_pad, npieces)
     sparse_relax_sweep.launches += 1
     return new, dist_out
 

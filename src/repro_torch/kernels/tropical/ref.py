@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the three tropical (min,+) sweep kernels and
-of the dense operand's live-word index.
+"""Plain PyTorch versions of the three tropical (min,+) sweep kernels, of
+the dense operand's live-word index and of the sparse relax's in-lane
+index.
 
 Each function computes exactly what its CUDA kernel in
 ``csrc/tropical.cu`` computes.  The wrappers in ``kernel.py`` call them
@@ -20,7 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..common import WordIndex, expand_table, word_index_ref
+from ..common import LaneIndex, WordIndex, expand_table, word_index_ref
 
 # bound on one chunk's (S, kc, n) broadcast, in elements
 _CHUNK_ELEMS = 1 << 26
@@ -49,6 +50,59 @@ def finite_words_ref(wdense: torch.Tensor) -> WordIndex:
     """The live-word index of a (k, n) float32 operand: per row, the
     16-byte words (4 columns) that hold a finite weight, ascending."""
     return word_index_ref(wdense, 4, torch.isfinite)
+
+
+def hub_pieces(offsets: torch.Tensor, hub: int):
+    """The pieces of ``hub`` lanes that the targets with more than ``hub``
+    in-lanes are cut into, from the in-lane offsets: ((n + 1,) int32 first
+    piece of each target, (P, 2) int32 lane ranges), target by target."""
+    if hub < 1:
+        raise ValueError(f"hub={hub}: a piece holds at least one lane")
+    off = offsets.long()
+    deg = off[1:] - off[:-1]
+    cuts = torch.where(deg > hub, (deg + hub - 1) // hub, 0)
+    first = torch.zeros_like(off)
+    first[1:] = torch.cumsum(cuts, 0)
+    tgt = torch.repeat_interleave(
+        torch.arange(deg.numel(), device=off.device), cuts)
+    start = off[tgt] + (torch.arange(tgt.numel(), device=off.device)
+                        - first[tgt]) * hub
+    end = torch.minimum(start + hub, off[tgt + 1])
+    return first.to(torch.int32), \
+        torch.stack([start, end], dim=1).to(torch.int32)
+
+
+def in_lanes_ref(src_idx: torch.Tensor, dst_idx: torch.Tensor,
+                 w_edges: torch.Tensor, n_pad: int, hub: int) -> LaneIndex:
+    """The in-lane index (``common.LaneIndex``) of the CSR lanes: per
+    target, the sources and weights of the lanes into it, in lane order,
+    without the lanes weighted +inf; the targets with more than ``hub``
+    in-lanes cut into pieces of ``hub`` lanes."""
+    keep = w_edges < _INF
+    src, dst, w = src_idx[keep], dst_idx[keep].long(), w_edges[keep]
+    if dst.numel() and not (0 <= int(torch.minimum(src.min(), dst.min()))
+                            and int(torch.maximum(src.max(), dst.max()))
+                            < n_pad):
+        raise ValueError(f"lane ids outside [0, {n_pad})")
+    order = torch.argsort(dst, stable=True)
+    offsets = torch.zeros(n_pad + 1, dtype=torch.int64, device=dst.device)
+    offsets[1:] = torch.cumsum(torch.bincount(dst, minlength=n_pad), 0)
+    offsets = offsets.to(torch.int32)
+    return LaneIndex(offsets, src[order].to(torch.int32), w[order],
+                     *hub_pieces(offsets, hub))
+
+
+def in_lanes_sorted(index: LaneIndex) -> LaneIndex:
+    """``index`` with each target's lanes sorted by (source, weight): two
+    builds of one graph's index are equal exactly when their sorted forms
+    are (the card's build fills a target's lanes in any order)."""
+    counts = (index.offsets[1:] - index.offsets[:-1]).long()
+    col = torch.repeat_interleave(
+        torch.arange(counts.numel(), device=counts.device), counts)
+    order = torch.argsort(index.w.view(torch.int32), stable=True)
+    key = col[order] * (1 << 31) + index.src[order].long()
+    order = order[torch.argsort(key, stable=True)]
+    return index._replace(src=index.src[order], w=index.w[order])
 
 
 def minplus_sweep_ref(fdist: torch.Tensor, wdense: torch.Tensor,

@@ -15,7 +15,7 @@ from repro_torch.core.weighted import (WeightedConfig, prepare_weighted,
                                        weighted_apsp)
 from repro_torch.graph import generators as gen
 from repro_torch.graph.csr import CSRGraph
-from repro_torch.kernels import bovm, common, counting, tropical
+from repro_torch.kernels import bovm, counting, tropical
 from repro_torch.kernels.bovm import ref as R
 
 pytestmark = pytest.mark.cuda
@@ -459,16 +459,18 @@ def _tropical_start(nodes, s, seed):
 def test_tropical_kernels_match_plain(cuda, monkeypatch, s, nodes, bs,
                                       chunk):
     """K7 (``chunk`` live words per work item; with a prepared live-word
-    index, then building its own) and K9 sweep by sweep, then K8 from the
-    mid-run state (n_run 0, 1, 3 and to the fixpoint, ``chunk`` words per
-    item, with and without the prepared index): bit-identical to the
-    plain versions on the CPU.  S = 40 leaves 24 lanes of the last row
-    group past S; n_pad 384."""
+    index, then building its own) and K9 (with a prepared in-lane index,
+    then building its own from lanes in random order) sweep by sweep,
+    then K8 from the mid-run state (n_run 0, 1, 3 and to the fixpoint,
+    ``chunk`` words per item, with and without the prepared index):
+    bit-identical to the plain versions on the CPU.  S = 40 leaves 24
+    lanes of the last row group past S; n_pad 384."""
     monkeypatch.setattr(tropical.kernel, "CHUNK_WORDS", chunk)
     pw, f, d = _tropical_start(nodes, s, nodes)
     g, w, wd = pw.graph, pw.w_edges, pw.wdense
     index = tropical.finite_words(wd.to(cuda))
-    indptr = common.lane_offsets(g.src, pw.n_pad)
+    lanes = tropical.in_lanes(g.src.to(cuda), g.dst.to(cuda), w.to(cuda),
+                              pw.n_pad)
     inf = torch.tensor(float("inf"))
     before = (tropical.fused_minplus_sweep.launches,
               tropical.sparse_relax_sweep.launches)
@@ -483,9 +485,10 @@ def test_tropical_kernels_match_plain(cuda, monkeypatch, s, nodes, bs,
         _same(want, got)
         got = tropical.sparse_relax_sweep(
             f.to(cuda), d.to(cuda), g.src.to(cuda), g.dst.to(cuda),
-            w.to(cuda), indptr=indptr.to(cuda))
+            w.to(cuda), index=lanes)
         _same(want, got)
-        # without indptr the wrapper sorts the lanes itself
+        # without an index the wrapper builds its own, from lanes in any
+        # order
         perm = torch.randperm(g.m_pad, generator=torch.Generator()
                               .manual_seed(s))
         got = tropical.sparse_relax_sweep(
@@ -508,6 +511,118 @@ def test_tropical_kernels_match_plain(cuda, monkeypatch, s, nodes, bs,
         assert bool(want[3]) == bool(got[3])
     assert bool(got[3]) and int(got[2]) < 60        # stopped early
     assert tropical.fused_minplus_multisweep.launches == before + 4
+
+
+def _relax_lanes(case, n=1000, m=5000, seed=0):
+    """CSR-like lanes (int32 src / dst, float32 weights, +inf padded to a
+    multiple of 128 with the sentinel id n) for K9's cases: dyadic weights
+    with many ties, a quarter of them zero in ``zero_weights``, a fan-in
+    hub of 3,000 lanes into node 7 in ``hub``, the lanes in random order
+    in ``shuffled``."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, m)
+    dst = rng.integers(0, n, m)
+    w = rng.integers(1, 9, m) / 4
+    if case == "zero_weights":
+        w[rng.random(m) < 0.25] = 0.0
+    if case == "hub":
+        src = np.r_[src, rng.integers(0, n, 3000)]
+        dst = np.r_[dst, np.full(3000, 7)]
+        w = np.r_[w, rng.integers(1, 9, 3000) / 4]
+    if case != "shuffled":
+        order = np.argsort(src, kind="stable")     # CSR order
+        src, dst, w = src[order], dst[order], w[order]
+    m_pad = -(-src.size // 128) * 128
+    pad = m_pad - src.size
+    src, dst = np.r_[src, np.full(pad, n)], np.r_[dst, np.full(pad, n)]
+    w = np.r_[w, np.full(pad, np.inf)]
+    if case == "shuffled":
+        perm = rng.permutation(m_pad)
+        src, dst, w = src[perm], dst[perm], w[perm]
+    return (torch.from_numpy(src.astype(np.int32)),
+            torch.from_numpy(dst.astype(np.int32)),
+            torch.from_numpy(w.astype(np.float32)))
+
+
+def _relax_state(case, s, n_pad, seed=1):
+    """A (frontier, dist) pair: distances on a quarter grid (ties with
+    the candidates), 40% finite; a frontier of 30%, empty in ``empty``,
+    and in ``inf_frontier`` also set on every unreached entry."""
+    rng = np.random.default_rng(seed)
+    d = np.where(rng.random((s, n_pad)) < 0.4,
+                 rng.integers(0, 40, (s, n_pad)) / 4, np.inf)
+    f = rng.random((s, n_pad)) < 0.3
+    if case == "inf_frontier":
+        f |= np.isinf(d)
+    if case == "empty":
+        f[:] = False
+    return (torch.from_numpy(f.astype(np.int8)),
+            torch.from_numpy(d.astype(np.float32)))
+
+
+@pytest.mark.parametrize("hub", [1, 32, 256])
+@pytest.mark.parametrize("case", ["ties", "zero_weights", "inf_frontier",
+                                  "s40", "s160", "empty", "hub",
+                                  "shuffled"])
+def test_sparse_relax_gather_matches_plain(cuda, monkeypatch, case, hub):
+    """K9's gather on the card against its plain version, bit for bit:
+    ties between candidates and with dist, zero weights, frontier entries
+    at +inf, S = 40 (a part row group), S = 160 (five groups: two gather
+    blocks per tile, the second with one group), an empty frontier, a hub
+    of 3,000
+    in-lanes (above every split threshold tried), lanes in random order;
+    each target of more than ``hub`` in-lanes cut into pieces of ``hub``
+    lanes (1: every target of two or more), with the prepared in-lane
+    index and building its own."""
+    monkeypatch.setattr(tropical.kernel, "HUB_LANES", hub)
+    src, dst, w = _relax_lanes(case)
+    n_pad = 1024
+    f, d = _relax_state(case, {"s40": 40, "s160": 160}.get(case, 96), n_pad)
+    want = tropical.sparse_relax_sweep(f, d, src, dst, w)
+    if case != "empty":
+        assert want[0].any()
+    lanes = tropical.in_lanes(src.to(cuda), dst.to(cuda), w.to(cuda), n_pad)
+    before = (tropical.sparse_relax_sweep.launches,
+              tropical.in_lanes.launches)
+    for idx in (lanes, None):
+        got = tropical.sparse_relax_sweep(
+            f.to(cuda), d.to(cuda), src.to(cuda), dst.to(cuda), w.to(cuda),
+            index=idx)
+        torch.cuda.synchronize()
+        _same(want, got)
+    assert tropical.sparse_relax_sweep.launches == before[0] + 2
+    assert tropical.in_lanes.launches == before[1] + 1
+
+
+@pytest.mark.parametrize("kind", ["er", "hub", "grid", "shuffled"])
+def test_in_lanes_kernel_matches_plain(cuda, kind):
+    """K9's in-lane index built on the card against its plain version:
+    the same offsets, and each target's lanes the same up to their order;
+    a lane id outside the state raises."""
+    if kind in ("hub", "shuffled"):
+        src, dst, w = _relax_lanes(kind, seed=5)
+        n_pad = 1024
+    else:
+        g = {"er": lambda: gen.erdos_renyi(900, 5.0, seed=9, device="cpu"),
+             "grid": lambda: gen.grid2d(20, 20, device="cpu")}[kind]()
+        w = (np.random.default_rng(3).integers(0, 33, g.m_pad) / 8) \
+            .astype(np.float32)
+        pw = prepare_weighted(g, w, device="cpu")
+        src, dst, w, n_pad = g.src, g.dst, pw.w_edges, pw.n_pad
+    want = tropical.in_lanes(src, dst, w, n_pad)
+    before = tropical.in_lanes.launches
+    got = tropical.in_lanes(src.to(cuda), dst.to(cuda), w.to(cuda), n_pad)
+    torch.cuda.synchronize()
+    assert tropical.in_lanes.launches == before + 1
+    assert torch.equal(want.offsets, got.offsets.cpu())
+    for a, b in zip(tropical.in_lanes_sorted(want),
+                    tropical.in_lanes_sorted(got)):
+        assert torch.equal(a, b.cpu())
+    if kind == "hub":
+        assert want.pieces.shape[0] > 0
+    with pytest.raises(ValueError, match="outside"):
+        tropical.in_lanes(src.to(cuda), dst.to(cuda), w.to(cuda),
+                          int(dst[w < float("inf")].max()))
 
 
 @pytest.mark.parametrize("s", [16, 40, 128, 256])
@@ -605,10 +720,10 @@ def test_weighted_engine_on_card_matches_cpu(cuda, opts):
 
 
 def test_operand_indexes_built_once_and_on_card_only(cuda):
-    """The pinned counting push and the fused weighted run over several
-    source batches build their operand's live-word index once per
-    prepared graph on the card (one builder launch, none per batch or
-    sweep), never on the CPU, and equal the CPU runs."""
+    """The pinned counting push, the fused weighted run and the pinned
+    sparse weighted run over several source batches build their operand's
+    index once per prepared graph on the card (one builder launch, none
+    per batch or sweep), never on the CPU, and equal the CPU runs."""
     g = gen.rmat(10, 8, directed=False, seed=2, device="cpu")
     sources = np.arange(0, 1024, 5)                 # 205 sources: 4 batches
     cfg = CentralityConfig(use_kernel=True, mode="push", source_batch=64)
@@ -635,5 +750,19 @@ def test_operand_indexes_built_once_and_on_card_only(cuda):
     assert tropical.finite_words.launches == before[0] + 1
     assert tropical.fused_minplus_multisweep.launches >= before[1] + 4
     assert cpu_pw._wdense_index is None and card_pw._wdense_index is not None
+    assert torch.equal(want.dist, got.dist.cpu())
+    assert want.sweeps == got.sweeps
+    # the pinned sparse run: K9's in-lane index, once, and no dense operand
+    scfg = WeightedConfig(use_kernel=True, mode="sparse", source_batch=64)
+    cpu_pw, card_pw = prepare_weighted(g, w, device="cpu"), \
+        prepare_weighted(g, w, device=cuda)
+    before = (tropical.in_lanes.launches,
+              tropical.sparse_relax_sweep.launches)
+    want = weighted_apsp(cpu_pw, sources=sources, config=scfg)
+    got = weighted_apsp(card_pw, sources=sources, config=scfg)
+    assert tropical.in_lanes.launches == before[0] + 1
+    assert tropical.sparse_relax_sweep.launches > before[1] + 4
+    assert cpu_pw._relax_index is None and card_pw._relax_index is not None
+    assert card_pw._wdense is None
     assert torch.equal(want.dist, got.dist.cpu())
     assert want.sweeps == got.sweeps

@@ -1,7 +1,8 @@
 """The port's tropical (min,+) kernels and forms against the JAX package on
 the CPU: the three kernels' plain versions (through the port's wrappers,
 on CPU tensors) against the Pallas kernels in interpret mode, the
-registry set and its fused gate, the dense form against the sparse form,
+indexes K7 / K8 and K9 read against numpy, the registry set and its
+fused gate, the dense form against the sparse form,
 ``minplus_candidates`` and the weighted branch of ``derive_parents``.
 Every comparison is bit-identical: a candidate is one f32 add and the
 reduction is a min, which is exact in any order."""
@@ -129,9 +130,13 @@ def test_minplus_no_edges_skips_every_tile():
 # K9: the edge-parallel sparse relax
 # --------------------------------------------------------------------------
 
+@pytest.mark.parametrize("with_index", [False, True])
 @pytest.mark.parametrize("s,n_pad,eb", [(8, 128, 128), (16, 256, 128),
                                         (32, 256, 256)])
-def test_sparse_relax_matches_pallas(s, n_pad, eb):
+def test_sparse_relax_matches_pallas(s, n_pad, eb, with_index):
+    """K9's plain version against the Pallas kernel; on the CPU the
+    wrapper reads no in-lane index, so handing it one (checked, then
+    ignored) changes nothing."""
     rng = np.random.default_rng(s + n_pad)
     n = n_pad - 1                                     # room for the sentinel
     m = 4 * n
@@ -149,11 +154,118 @@ def test_sparse_relax_matches_pallas(s, n_pad, eb):
     args = (f, dist, src, dst, w)
     want = jkern.sparse_relax_sweep(*map(jnp.asarray, args), eb=eb,
                                     interpret=True)
-    got = tkern.sparse_relax_sweep(*map(_t, args), eb=eb)
+    index = tkern.in_lanes(_t(src), _t(dst), _t(w), n_pad) \
+        if with_index else None
+    got = tkern.sparse_relax_sweep(*map(_t, args), eb=eb, index=index)
     _same(want, got)
     assert tkern.sparse_relax_sweep.launches == 0
+    assert tkern.in_lanes.launches == 0                  # CPU: no launch
     with pytest.raises(ValueError, match="multiple of eb"):
-        tkern.sparse_relax_sweep(*map(_t, args), eb=3 * m_pad)
+        tkern.sparse_relax_sweep(*map(_t, args), eb=3 * m_pad, index=index)
+    if with_index:
+        with pytest.raises(ValueError, match="offsets"):
+            tkern.sparse_relax_sweep(*map(_t, args), eb=eb, index=(
+                tkern.in_lanes(_t(src), _t(dst), _t(w), 2 * n_pad)))
+        with pytest.raises(ValueError, match="w must be torch.float32"):
+            tkern.sparse_relax_sweep(*map(_t, args), eb=eb, index=(
+                index._replace(w=index.w.double())))
+
+
+# --------------------------------------------------------------------------
+# the in-lane index K9 reads
+# --------------------------------------------------------------------------
+
+def _lane_families():
+    """The adversarial families (multi-edges, self-loops, a fan-in hub,
+    isolated nodes), plus a hub of in-degree 700 among isolated nodes."""
+    fams = dict(FAMILIES)
+    n = 900
+    fams["hub_in"] = (np.arange(1, 701, dtype=np.int32),
+                      np.full(700, 5, np.int32), n)
+    return fams
+
+
+LANE_FAMILIES = _lane_families()
+
+
+def _numpy_csc(src, dst, w, n_pad):
+    """The CSC of the lanes below +inf weight, each target's lanes sorted
+    by (source, weight bits): (offsets, src, w)."""
+    keep = w < np.inf
+    src, dst, w = src[keep], dst[keep], w[keep]
+    order = np.lexsort((w.view(np.int32), src, dst))
+    counts = np.bincount(dst, minlength=n_pad)
+    return np.r_[0, np.cumsum(counts)], src[order], w[order]
+
+
+def _numpy_pieces(off, hub):
+    """Per target with more than ``hub`` in-lanes, its lanes cut into
+    runs of ``hub``: (first piece of each target, (start, end) pairs)."""
+    first, pieces = [0], []
+    for lo, hi in zip(off[:-1], off[1:]):
+        if hi - lo > hub:
+            pieces += [(a, min(a + hub, hi)) for a in range(lo, hi, hub)]
+        first.append(len(pieces))
+    return np.asarray(first), np.asarray(pieces).reshape(-1, 2)
+
+
+@pytest.mark.parametrize("hub", [3, 256])
+@pytest.mark.parametrize("shuffle", [False, True])
+@pytest.mark.parametrize("family", sorted(LANE_FAMILIES))
+def test_in_lanes_is_the_csc_of_the_lanes(monkeypatch, family, shuffle, hub):
+    """The plain in-lane index against a numpy CSC of the padded CSR
+    lanes: every lane below +inf weight (zero weights included, the
+    sentinel-padded lanes left out) under its target, and none else;
+    isolated targets list none; a target of more than ``hub`` in-lanes
+    cut into pieces of ``hub`` (``HUB_LANES``).  Lanes in random order
+    give the same index up to the order within a target."""
+    monkeypatch.setattr(tkern.kernel, "HUB_LANES", hub)
+    src, dst, n = LANE_FAMILIES[family]
+    jg = JCSR.from_edges(src, dst, n)
+    n_pad = jg.n_padded()
+    rng = np.random.default_rng(n + len(family))
+    lsrc = np.asarray(jg.src).astype(np.int32)
+    ldst = np.asarray(jg.dst).astype(np.int32)
+    w = np.full(jg.m_pad, np.inf, np.float32)
+    w[: jg.n_edges] = rng.integers(0, 9, jg.n_edges) / 4   # zeros, ties
+    if shuffle:
+        perm = rng.permutation(jg.m_pad)
+        lsrc, ldst, w = lsrc[perm], ldst[perm], w[perm]
+    idx = tkern.in_lanes(_t(lsrc), _t(ldst), _t(w), n_pad)
+    assert idx.offsets.dtype == idx.src.dtype == torch.int32
+    assert idx.w.dtype == torch.float32
+    off, want_src, want_w = _numpy_csc(lsrc, ldst, w, n_pad)
+    np.testing.assert_array_equal(idx.offsets.numpy(), off)
+    first, pieces = _numpy_pieces(off, hub)
+    assert idx.hub_first.dtype == idx.pieces.dtype == torch.int32
+    np.testing.assert_array_equal(idx.hub_first.numpy(), first)
+    np.testing.assert_array_equal(idx.pieces.numpy(), pieces)
+    assert int(idx.offsets[-1]) == jg.n_edges
+    got = tkern.in_lanes_sorted(idx)
+    np.testing.assert_array_equal(got.src.numpy(), want_src)
+    np.testing.assert_array_equal(got.w.numpy(), want_w)
+    if not shuffle:                   # the plain build keeps lane order
+        np.testing.assert_array_equal(
+            idx.src.numpy(), lsrc[: jg.n_edges][np.argsort(
+                ldst[: jg.n_edges], kind="stable")])
+    assert tkern.in_lanes.launches == 0
+
+
+def test_in_lanes_rejects_ids_outside_the_state(monkeypatch):
+    src = torch.tensor([0, 1, 2, 300], dtype=torch.int32)
+    dst = torch.tensor([1, 2, 3, 0], dtype=torch.int32)
+    w = torch.tensor([1.0, 2.0, 3.0, 4.0])
+    with pytest.raises(ValueError, match="outside"):
+        tkern.in_lanes(src, dst, w, 256)
+    # a padded lane (+inf) may carry any id: it is left out
+    w[3] = float("inf")
+    idx = tkern.in_lanes(src, dst, w, 256)
+    assert int(idx.offsets[-1]) == 3
+    with pytest.raises(ValueError, match="lanes: shapes"):
+        tkern.in_lanes(src, dst[:3], w, 256)
+    monkeypatch.setattr(tkern.kernel, "HUB_LANES", 0)
+    with pytest.raises(ValueError, match="at least one lane"):
+        tkern.in_lanes(src, dst, w, 256)
 
 
 # --------------------------------------------------------------------------
@@ -300,6 +412,7 @@ def test_tropical_registry_and_fused_gate():
         ks.smem_bytes(form="fused", n=1 << 24) == \
         tkern.kernel.FUSED_TILE_BYTES == 4_352 <= common.SMEM_BUDGET_BYTES
     assert ks.operand_index is tkern.finite_words
+    assert ks.lane_index is tkern.in_lanes
     kw = dict(max_steps=9, use_kernel=True, bs=128)
     assert tsweep.resolve_fused_steps("tropical", "dense", fused_steps=-1,
                                       n_pad=65_664, **kw) == 9
@@ -316,13 +429,20 @@ def test_tropical_registry_and_fused_gate():
 
 
 def test_lane_offsets_cover_csr_lanes():
+    """The in-lane index's offsets are the graph's own CSC column
+    pointers where every real lane is weighted: K9's index covers the CSR
+    lanes, the padded ones left out."""
     src, dst, n = FAMILIES["random_ragged"]
     tg = _carry(JCSR.from_edges(src, dst, n))
     n_pad = tg.n_padded()
-    off = common.lane_offsets(tg.src, n_pad)
+    lanes = np.full(tg.m_pad, np.inf, np.float32)
+    lanes[: tg.n_edges] = 1.0
+    w = lane_weights_from_array(lanes, n_edges=tg.n_edges, m_pad=tg.m_pad,
+                                device="cpu")
+    off = tkern.in_lanes(tg.src, tg.dst, w, n_pad).offsets
     assert off.dtype == torch.int32 and off.shape == (n_pad + 1,)
-    np.testing.assert_array_equal(off[: n + 1].numpy(), tg.indptr.numpy())
-    assert int(off[-1]) == tg.m_pad
+    np.testing.assert_array_equal(off[: n + 1].numpy(), tg.indptr_t.numpy())
+    assert int(off[-1]) == tg.n_edges
 
 
 # --------------------------------------------------------------------------

@@ -5,8 +5,9 @@ CPU: ``from_weighted_edges``, ``weighted_apsp``'s ``dist``, ``sweeps``,
 on the kernel path with and without fused blocks; the single-source and
 bucketed drivers against JAX and scipy's Dijkstra; the facade; and
 ``bench_weighted --quick``'s sweep counts.  Weights are numpy-seeded
-``uniform(0.5, 4.0)``; the wall-clock calibration regime is never run
-(it is not deterministic)."""
+``uniform(0.5, 4.0)``; the wall-clock calibration regime is run only to
+check which indexes it builds, never compared (it is not
+deterministic)."""
 import importlib
 
 import numpy as np
@@ -19,6 +20,7 @@ from repro.graph import generators as jgen
 from repro.graph.csr import CSRGraph as JCSR
 from repro_torch.convert import csr_from_arrays, lane_weights_from_array
 from repro_torch.graph.csr import CSRGraph as TCSR
+from repro_torch.kernels import tropical as tkern
 import repro_torch
 
 jw = importlib.import_module("repro.core.weighted")
@@ -230,7 +232,46 @@ def test_cpu_prepared_weighted_graph_builds_no_index(config):
     rj = jw.weighted_apsp(jg, w, sources,
                           config=jw.WeightedConfig(source_batch=8, **cfg))
     assert pw._wdense is not None and pw._wdense_index is None
+    assert pw._relax_index is None
     assert_same(rj, rt)
+
+
+@pytest.mark.parametrize("config", ["kernel_sparse", "dynamic",
+                                    "calibrated"])
+def test_cpu_prepared_weighted_graph_builds_no_relax_index(config):
+    """Wherever the sparse relax kernel can dispatch (pinned, under the
+    dynamic switch, or picked by calibration), a prepared weighted graph
+    on the CPU never builds ``relax_index``: the plain version reads
+    none.  The results stay the JAX engine's."""
+    jg, w = weighted_family("random_ragged", seed=3)
+    sources = np.arange(min(jg.n_nodes, 16), dtype=np.int32)
+    pw = tw.prepare_weighted(carry(jg), w, device="cpu")
+    cfg = {"kernel_sparse": dict(mode="sparse", use_kernel=True),
+           "dynamic": CONFIGS["dynamic"],
+           "calibrated": dict(use_kernel=True, dynamic=False)}[config]
+    rt = tw.weighted_apsp(pw, sources=sources,
+                          config=tw.WeightedConfig(source_batch=8, **cfg))
+    assert pw._relax_index is None
+    if config == "kernel_sparse":     # the sparse-only run: no dense operand
+        assert pw._wdense is None
+    if config != "calibrated":        # calibration times the CPU's clock
+        rj = jw.weighted_apsp(jg, w, sources,
+                              config=jw.WeightedConfig(source_batch=8, **cfg))
+        assert_same(rj, rt)
+
+
+def test_relax_index_built_once_from_the_lanes():
+    """``relax_index`` is the in-lane index of the prepared lanes, built
+    on first use and kept; it never builds the dense operand."""
+    jg, w = weighted_family("duplicate_edges", seed=4)
+    pw = tw.prepare_weighted(carry(jg), w, device="cpu")
+    idx = pw.relax_index
+    assert pw.relax_index is idx and pw._wdense is None
+    want = tkern.in_lanes_ref(pw.graph.src, pw.graph.dst, pw.w_edges,
+                              pw.n_pad, tkern.kernel.HUB_LANES)
+    for a, b in zip(want, idx):
+        assert torch.equal(a, b)
+    assert int(idx.offsets[-1]) == jg.n_edges
 
 
 # --------------------------------------------------------------------------

@@ -49,7 +49,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch
     from repro_torch.graph import generators as gen
-    from repro_torch.kernels import common, tropical
+    from repro_torch.kernels import tropical
     from repro_torch.kernels.tropical import kernel as K
     from repro_torch.kernels.tropical import ref as TR
 
@@ -70,10 +70,9 @@ def main() -> int:
     f[torch.arange(s, device="cuda"),
       torch.from_numpy(srcs.astype(np.int64)).cuda()] = 1
     d = torch.where(f != 0, 0.0, float("inf")).to(torch.float32)
-    indptr = common.lane_offsets(g.src, n)
     for _ in range(2):
         f, d = tropical.sparse_relax_sweep(f, d, g.src, g.dst, lw,
-                                           indptr=indptr)
+                                           index=pw.relax_index)
     fd = torch.where(f != 0, d, torch.tensor(float("inf"), device="cuda"))
     w_min = lw.min()
     idx = tropical.finite_words(wd)

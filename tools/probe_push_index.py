@@ -62,7 +62,7 @@ def main(argv) -> int:
     from repro_torch.core.centrality import (CentralityConfig,
                                              counting_apsp_blocks)
     from repro_torch.graph import generators as gen
-    from repro_torch.kernels import common, counting, tropical
+    from repro_torch.kernels import counting, tropical
     from repro_torch.kernels.counting import kernel as CK
     from repro_torch.kernels.counting import ref as CR
     from repro_torch.kernels.tropical import kernel as TK
@@ -130,10 +130,9 @@ def main(argv) -> int:
     f[torch.arange(s, device="cuda"),
       torch.from_numpy(srcs.astype(np.int64)).cuda()] = 1
     d = torch.where(f != 0, 0.0, float("inf")).to(torch.float32)
-    indptr = common.lane_offsets(g.src, n)
     for _ in range(2):
         f, d = tropical.sparse_relax_sweep(f, d, g.src, g.dst, lw,
-                                           indptr=indptr)
+                                           index=pw.relax_index)
     wants = {n_run: TR.fused_minplus_multisweep_ref(f, wd, d, n_run)
              for n_run in (0, 1, 2, 4)}
     for chunk, per_sm in K8_SHAPES[:1] if quick else K8_SHAPES:

@@ -55,7 +55,8 @@ def main() -> int:
     f[torch.arange(128), torch.from_numpy(srcs).cuda()] = 1
     d = torch.where(f != 0, 0.0, float("inf")).to(torch.float32)
     for _ in range(2):
-        f, d = tropical.sparse_relax_sweep(f, d, g.src, g.dst, pw.w_edges)
+        f, d = tropical.sparse_relax_sweep(f, d, g.src, g.dst, pw.w_edges,
+                                           index=pw.relax_index)
     print("frontier", int(f.sum()), "union", int((f != 0).any(0).sum()),
           flush=True)
     fd = torch.where(f != 0, d, torch.tensor(float("inf"), device="cuda"))
@@ -72,7 +73,7 @@ def main() -> int:
     _, sec = timed(k7)
     print("K7", sec, flush=True)
     out9, sec = timed(lambda: tropical.sparse_relax_sweep(
-        f, d, g.src, g.dst, pw.w_edges))
+        f, d, g.src, g.dst, pw.w_edges, index=pw.relax_index))
     print("K9", sec, torch.equal(out7[0], out9[0]),
           torch.equal(out7[1], out9[1]), flush=True)
     for n_run in (1, 4):

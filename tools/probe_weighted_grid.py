@@ -41,7 +41,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(args.root) / "src"))
     import repro_torch
     from repro_torch.graph import generators as gen
-    from repro_torch.kernels import common, tropical
+    from repro_torch.kernels import tropical
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -65,6 +65,7 @@ def main() -> int:
         if not opts:
             pw.wdense
             getattr(pw, "wdense_index", None)    # absent before the index
+        getattr(pw, "relax_index", None)         # absent in older trees
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = h.apsp(srcs, semiring="tropical")
@@ -97,7 +98,8 @@ def main() -> int:
     f[torch.arange(s, device="cuda"),
       torch.from_numpy(srcs.astype(np.int64)).cuda()] = 1
     d = torch.where(f != 0, 0.0, float("inf")).to(torch.float32)
-    indptr = common.lane_offsets(g.src, n)
+    # a tree from before the in-lane index builds K9's lane order itself
+    relax = {"index": pw.relax_index} if hasattr(pw, "relax_index") else {}
     inf = torch.tensor(float("inf"), device="cuda")
     for sweep in range(4):
         fd = torch.where(f != 0, d, inf)
@@ -105,7 +107,7 @@ def main() -> int:
             "fused_minplus_sweep": lambda: tropical.fused_minplus_sweep(
                 fd, pw.wdense, d, pw.w_edges.min(), index=pw.wdense_index),
             "sparse_relax_sweep": lambda: tropical.sparse_relax_sweep(
-                f, d, g.src, g.dst, pw.w_edges, indptr=indptr)}
+                f, d, g.src, g.dst, pw.w_edges, **relax)}
         for name, fn in kernels.items():
             fn()
             torch.cuda.synchronize()
