@@ -28,6 +28,28 @@ takes to run it.  Each kernel
 line carries its state and its main-path launches per graph
 (``tools/kernel_table.py`` ranks the kernels from them).  The packed
 bound is printed beside the earlier rule's (phase ``bound_recount``).
+
+Then the low-level boolean paths on rmat16: ``wcc`` against scipy's weak
+components (phase ``wcc``), and the full-BFS drivers ``msbfs_kernel``
+(K4 in every sweep) and ``msbfs_packed`` (K2 in every sweep, its index
+built once) on 128 sources against scipy's BFS (phases
+``msbfs_kernel``, ``msbfs_packed``).  Last, the dynamic path (phase
+``dynamic``): each graph wrapped in a ``DynamicCSRGraph``, 6 rounds of
+``bench_dynamic``'s update stream (a 32-node index window a round, 6
+random pairs inserted both ways, the shortcuts of two rounds earlier
+deleted; the recipe is copied here), a compaction after round 3, and
+``prepare(dg).incremental(sources).update()`` each round held equal to a
+fresh ``sssp_state`` of the mutated graph: unweighted on rmat16 (its
+first 128 sources) and grid256, weighted on rmat16 (inserts weighted
+like the lanes).  Each repair's resumed sweeps are K9 over the in-lane
+index of the view it repairs, built once per view; each round also holds
+one K9 sweep over that view and index against its plain version (the
+scratch run may be K9 too).  Each line prints the repair and scratch
+sweeps and host seconds, the K9 and ``in_lanes`` launches of the
+repairs, the seconds in ``view()`` and the peak device memory; every
+source's row of the final graph is held to scipy, directly and through
+the facade.  Each kernel line carries its launches on every path
+(``launches_by_path``) and their sum (``launches``).
 One JSON line per phase; the last line is
 ``{"ok": true, "device": {...}}``.
 Any failure raises and the script exits non-zero.  Without CUDA, or
@@ -68,6 +90,10 @@ N_CENTRALITY = 128           # sources of the centrality run
 GRID_STEPS = 200             # sweeps before grid256's thin kernel state
 GRID_RUN = 32                # sweeps per multi-sweep launch on that state
 EXACT_F32 = 2 ** 24          # float32 counts are exact integers below this
+DYN_ROUNDS = 6               # update rounds of the dynamic phase
+DYN_PER_ROUND = 6            # random pairs a round inserts (both ways)
+DYN_SOURCES = 128            # sources of its repair runs
+DYN_COMPACT_AFTER = 3        # the round after which the graph is compacted
 # betweenness: float32 dependency sums (atomic scatter-adds in any order,
 # a few thousand terms per hub) against a float64 Brandes on the host
 BETWEENNESS_RTOL = 1e-5
@@ -243,6 +269,191 @@ def host_minplus(g, lanes, sources):
         if not front.any():
             break
     return dist, sweeps, touched
+
+
+def record_stream(n, rounds, per_round, seed):
+    """The update stream of ``benchmarks/bench_dynamic.py``
+    (``_record_stream``), copied: each round one 32-node index window,
+    ``per_round`` random pairs inserted in both directions, and the
+    shortcuts of two rounds earlier deleted.  Each insert also draws a
+    lane weight, ``integers(4, 33) / 8`` from a second generator, so the
+    pairs are bench_dynamic's own.  -> [(ins_src, ins_dst, ins_w,
+    del_src, del_dst)]"""
+    rng = np.random.default_rng(seed)
+    wrng = np.random.default_rng(seed + 1)
+    batches, history = [], []
+    for _ in range(rounds):
+        center = int(rng.integers(0, n))
+        lo, hi = max(0, center - 16), min(n, center + 16)
+        u = rng.integers(lo, hi, size=per_round)
+        v = rng.integers(lo, hi, size=per_round)
+        keep = u != v
+        u, v = u[keep], v[keep]
+        ins_src = np.concatenate([u, v]).astype(np.int64)   # undirected
+        ins_dst = np.concatenate([v, u]).astype(np.int64)
+        ins_w = (wrng.integers(4, 33, ins_src.size) / 8).astype(np.float32)
+        if len(history) >= 2:
+            del_src, del_dst = history.pop(0)
+        else:
+            del_src = del_dst = np.zeros(0, np.int64)
+        history.append((ins_src, ins_dst))
+        batches.append((ins_src, ins_dst, ins_w, del_src, del_dst))
+    return batches
+
+
+def k9_view_check(torch, tropical, what, dg, inc, seed):
+    """One K9 sweep over the dynamic graph's current view (``m_pad`` its
+    buffer capacity, tombstoned lanes at +inf) and the in-lane index
+    the repair read, held bit-identical to the plain version.  The state
+    is the repaired one with a seeded quarter of its reached non-source
+    entries reset to +inf, relaxed from every entry still reached, so the
+    sweep lowers entries again.  The launch is a comparison's and is not
+    counted."""
+    view = dg.view()
+    n, n_pad = view.n_nodes, view.n_padded(128)
+    lw = torch.from_numpy(dg.view_weights()).cuda() if dg.weighted \
+        else torch.where(view.src < n, 1.0, float("inf")).to(torch.float32)
+    d = torch.full((inc.dist.shape[0], n_pad), float("inf"),
+                   dtype=torch.float32, device="cuda")
+    d[:, :n] = inc.dist
+    gen_ = torch.Generator(device="cuda").manual_seed(seed)
+    cut = (torch.rand(d.shape, generator=gen_, device="cuda") < 0.25) \
+        & (d > 0) & torch.isfinite(d)
+    d = torch.where(cut, float("inf"), d)
+    f = torch.isfinite(d).to(torch.int8)
+    launches = tropical.sparse_relax_sweep.launches
+    got = tropical.sparse_relax_sweep(f, d, view.src, view.dst, lw,
+                                      index=inc.lane_index())
+    tropical.sparse_relax_sweep.launches = launches
+    want = tropical.sparse_relax_ref(f, d, view.src, view.dst, lw)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{what}: K9 over the view differs from its "
+                             f"plain version")
+    if not bool(want[0].any()):
+        raise AssertionError(f"{what}: the K9 check lowered nothing")
+
+
+def dynamic_run(torch, repro_torch, tropical, name, g, sources, lanes,
+                stream):
+    """One graph's update stream through the facade: each round mutates
+    ``prepare(dg)``, repairs through ``h.incremental(sources).update()``
+    (K9 resumes the sweep from the affected frontier) and holds the
+    repaired ``dist`` and ``parent`` equal to a fresh ``sssp_state`` of the
+    mutated graph.  Since that scratch run is K9 too where the default
+    engine picks the sparse form, each round also holds one K9 sweep at
+    the repaired view's shapes, over the index the repair read, against
+    its plain version (:func:`k9_view_check`).  The graph is compacted
+    once, after round ``DYN_COMPACT_AFTER``.  Ends with every source's
+    row against scipy, directly and through the facade.  Returns the
+    phase line's fields."""
+    weighted = lanes is not None
+    sparse, in_lanes = tropical.sparse_relax_sweep, tropical.in_lanes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    peak = 0
+    t0 = time.perf_counter()
+    dg = repro_torch.DynamicCSRGraph(g, weights=lanes,
+                                     compact_threshold=0.001)
+    h = repro_torch.prepare(dg)
+    inc = h.incremental(sources)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    scratch_sweeps = inc.scratch_sweeps
+    view_s = repair_s = scratch_s = 0.0
+    k9 = lanes_built = 0
+    views, rounds = set(), []
+    for r, (ins_src, ins_dst, ins_w, del_src, del_dst) in enumerate(
+            stream, 1):
+        h.insert_edges(ins_src, ins_dst, ins_w if weighted else None)
+        if del_src.size:
+            h.delete_edges(del_src, del_dst)
+        t0 = time.perf_counter()
+        dg.view()
+        view_s += time.perf_counter() - t0
+        before = (sparse.launches, in_lanes.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = inc.update()
+        torch.cuda.synchronize()
+        repair_s += time.perf_counter() - t0
+        k9 += sparse.launches - before[0]
+        lanes_built += in_lanes.launches - before[1]
+        views.add((dg.epoch, dg.layout_version))
+        # the comparison's allocations stay out of the peak
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        k9_view_check(torch, tropical, f"dynamic/{name}: round {r}", dg,
+                      inc, SEED + r)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        shadow, sweeps = repro_torch.sssp_state(dg, sources,
+                                                config=inc.config)
+        torch.cuda.synchronize()
+        scratch_s += time.perf_counter() - t0
+        scratch_sweeps += sweeps
+        if not (torch.equal(inc.dist, shadow.dist)
+                and torch.equal(inc.parent, shadow.parent)):
+            raise AssertionError(f"dynamic/{name}: round {r}: the repaired "
+                                 f"state differs from scratch")
+        rounds.append(dict(round=r, epoch=dg.epoch, sweeps=res.sweeps,
+                           tainted=res.tainted, seeded=res.seeded,
+                           scratch_sweeps=sweeps))
+        del shadow, res
+        if r == DYN_COMPACT_AFTER:
+            # same content: the facade keeps its prepared graphs
+            pg = h.prepared()
+            pw = h.prepared_weighted() if weighted else None
+            layout = dg.layout_version
+            h.compact()
+            if dg.layout_version != layout + 1 or h.prepared() is not pg \
+                    or (weighted and h.prepared_weighted() is not pw):
+                raise AssertionError(f"dynamic/{name}: a compaction "
+                                     f"rebuilt the prepared graph")
+            del pg, pw
+    if not inc.repair_sweeps < scratch_sweeps:
+        raise AssertionError(f"dynamic/{name}: repair took "
+                             f"{inc.repair_sweeps} sweeps, scratch "
+                             f"{scratch_sweeps}")
+    if k9 < 1:
+        raise AssertionError(f"dynamic/{name}: K9 never launched in the "
+                             f"repairs")
+    if lanes_built != len(views) or len(views) != len(stream):
+        raise AssertionError(f"dynamic/{name}: in_lanes built "
+                             f"{lanes_built} times over {len(views)} "
+                             f"repaired views")
+    # the final graph against scipy, and through the facade
+    view, check = dg.view(), sources
+    if weighted:
+        want = scipy_dijkstra(view, dg.view_weights(), check)
+        got = inc.dist.cpu().numpy().astype(np.float64)
+        res = h.apsp(check, semiring="tropical")
+        facade = res.dist.cpu().numpy().astype(np.float64)
+        epoch = h.prepared_weighted().epoch
+    else:
+        want = scipy_dist(view, check)
+        got = inc.dist_int().cpu().numpy()
+        res = h.apsp(check)
+        facade = res.dist.cpu().numpy()
+        epoch = h.prepared().epoch
+    if not (np.array_equal(got, want) and np.array_equal(facade, want)):
+        raise AssertionError(f"dynamic/{name}: the final graph's rows "
+                             f"differ from scipy")
+    if epoch != dg.epoch:
+        raise AssertionError(f"dynamic/{name}: prepared at epoch {epoch}, "
+                             f"the graph is at {dg.epoch}")
+    return dict(graph=name, weighted=weighted, sources=int(len(sources)),
+                n_rounds=len(stream), repair_sweeps=inc.repair_sweeps,
+                scratch_sweeps=scratch_sweeps, n_epochs=dg.epoch,
+                n_compactions=dg.compactions, repairs=inc.repairs,
+                rebuilds=inc.rebuilds, k9_launches_in_repairs=k9,
+                in_lanes_launches_in_repairs=lanes_built,
+                repaired_views=len(views), repair_seconds=repair_s,
+                scratch_seconds=scratch_s, view_seconds=view_s,
+                setup_seconds=setup_s, m_pad=view.m_pad,
+                live_lanes=view.n_edges,
+                max_memory_allocated=max(
+                    peak, torch.cuda.max_memory_allocated()),
+                rows_checked=int(len(check)), k9_view_checks=len(stream),
+                rounds=rounds)
 
 
 def main() -> int:
@@ -1158,9 +1369,113 @@ def main() -> int:
            WORD_OPS_PER_S, 20, lib9g, library_note=lib9_note,
            device_ms=graph_ms(torch, g9, 20))
 
-    # launches of the comparisons above do not count: report the main path's
+    del pw2, g2, lw2, f2, d2, ridx2, gsrc
+    torch.cuda.empty_cache()
+    all_kernels = kernels + ckernels + wkernels
+    by_path = {k.__name__: {} for k in all_kernels}
+    for ks, path in ((kernels, "boolean"), (ckernels, "counting"),
+                     (wkernels, "weighted")):
+        for k in ks:
+            by_path[k.__name__][path] = launches[k.__name__]
+
+    def path_launches(path, before):
+        got = {k.__name__: k.launches - b
+               for k, b in zip(all_kernels, before)}
+        for name_, c in got.items():
+            if c:
+                by_path[name_][path] = c
+                launches[name_] += c
+        return got
+
+    # -- the low-level boolean paths: wcc, msbfs_kernel (K4), msbfs_packed
+    # (K2) on rmat16 -------------------------------------------------------
+    from repro_torch.core.wcc import wcc
+    from scipy.sparse.csgraph import connected_components
+    g = graphs["rmat16"]
+    n, n_pad = g.n_nodes, g.n_padded()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    comp = wcc(g)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_comp, lab = connected_components(g.to_scipy(), directed=True,
+                                       connection="weak")
+    first = np.full(n_comp, n, np.int64)
+    np.minimum.at(first, lab, np.arange(n))
+    if not np.array_equal(comp.labels.cpu().numpy(), first[lab]):
+        raise AssertionError("wcc: labels differ from scipy's weak "
+                             "components")
+    emit(phase="wcc", graph="rmat16", seconds=wall, iters=comp.iters,
+         n_components=int(n_comp))
+    msrcs = srcs["rmat16"][:DYN_SOURCES]
+    want = scipy_dist(g, msrcs)
+    msrc_t = torch.from_numpy(msrcs.astype(np.int64)).cuda()
+    adj = g.to_dense_padded(n_pad)               # operand build = set-up
+    before = [k.launches for k in all_kernels]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = bovm.msbfs_kernel(adj, msrc_t, max_steps=n_pad, bs=128, bn=128,
+                            bk=128)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = path_launches("msbfs_kernel", before)
+    if not np.array_equal(res.dist[:, :n].cpu().numpy(), want):
+        raise AssertionError("msbfs_kernel: dist differs from scipy BFS")
+    if got["fused_sweep"] != res.sweeps or res.sweeps < 1:
+        raise AssertionError(f"msbfs_kernel: {got['fused_sweep']} K4 "
+                             f"launches for {res.sweeps} sweeps")
+    emit(phase="msbfs_kernel", graph="rmat16", sources=int(len(msrcs)),
+         seconds=wall, sweeps=res.sweeps, launches=got,
+         dist_checked_rows=int(len(msrcs)))
+    del adj, res
+    at = g.to_pull_packed(n_pad)                 # operand build = set-up
+    words = at.shape[1]
+    before = [k.launches for k in all_kernels]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = bovm.msbfs_packed(at, msrc_t, n_pad, max_steps=n_pad, bs=8,
+                            bn=128, wk=4 if words % 8 else 8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = path_launches("msbfs_packed", before)
+    if not np.array_equal(res.dist[:, :n].cpu().numpy(), want):
+        raise AssertionError("msbfs_packed: dist differs from scipy BFS")
+    if got["packed_pull_sweep"] != res.sweeps or res.sweeps < 1 or \
+            got["packed_live_words"] != 1:
+        raise AssertionError(f"msbfs_packed: {got['packed_pull_sweep']} K2 "
+                             f"launches for {res.sweeps} sweeps, "
+                             f"{got['packed_live_words']} index builds")
+    emit(phase="msbfs_packed", graph="rmat16", sources=int(len(msrcs)),
+         seconds=wall, sweeps=res.sweeps, launches=got,
+         dist_checked_rows=int(len(msrcs)))
+    del at, res, msrc_t
+    torch.cuda.empty_cache()
+
+    # -- the dynamic path: mutation and incremental repair, K9 resuming
+    # each repair ----------------------------------------------------------
+    dyn = [("rmat16", graphs["rmat16"], srcs["rmat16"][:DYN_SOURCES], None),
+           ("grid256", graphs["grid256"], srcs["grid256"], None),
+           ("rmat16", graphs["rmat16"], srcs["rmat16"][:DYN_SOURCES],
+            lanes_of["rmat16"])]
+    before = [k.launches for k in all_kernels]
+    for name, g, dsrcs, lanes in dyn:
+        stream = record_stream(g.n_nodes, DYN_ROUNDS, DYN_PER_ROUND, SEED)
+        fields = dynamic_run(torch, repro_torch, tropical, name, g, dsrcs,
+                             lanes, stream)
+        emit(phase="dynamic", nvidia_smi=smi, **fields)
+        torch.cuda.empty_cache()
+    got = path_launches("dynamic", before)
+    emit(phase="dynamic_path", launches=got)
+    for name in ("sparse_relax_sweep", "in_lanes"):
+        if got[name] < 1:
+            raise AssertionError(f"{name} never launched on the dynamic "
+                                 f"path")
+
+    # launches of the comparisons above do not count: report those of the
+    # paths' runs
     for row in rows_out:
         row["launches"] = launches[row["name"]]
+        row["launches_by_path"] = by_path[row["name"]]
 
     print(json.dumps({"kernels": rows_out}), flush=True)
     print(smi, flush=True)

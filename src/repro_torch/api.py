@@ -8,15 +8,24 @@
     h = dawn.prepare(graph, weights=w)      # lane weights: tropical
     res = h.apsp(sources, semiring="tropical")
 
+    h = dawn.prepare(dyn)                   # DynamicCSRGraph
+    h.insert_edges([u], [v])                # mutation passthrough
+    d = h.sssp(0)                           # fresh epoch, same call
+    inc = h.incremental(sources)            # streaming repair driver
+
 ``prepare`` puts the graph's operands on ``device`` (``None``: the card;
 pass ``device="cpu"`` for the CPU) and raises when CUDA is missing and
-the CPU was not asked for.  The boolean, counting and tropical semirings
-and centrality are ported; the other routes of ``repro.api`` raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+the CPU was not asked for.  The handle is epoch-aware: on a
+:class:`DynamicCSRGraph` the prepared operands (and the kernels' indexes
+built from them) are dropped and rebuilt whenever the graph's content
+epoch has moved.  The boolean, counting and tropical semirings,
+centrality and incremental repair are ported; the other routes of
+``repro.api`` raise ``NotImplementedError`` naming the ROADMAP item that
+brings them.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -25,11 +34,13 @@ from .core.centrality import centrality as _centrality
 from .core.centrality import counting_apsp as _counting_apsp
 from .core.engine import EngineConfig, PreparedGraph, prepare_graph
 from .core.engine import apsp_engine as _apsp_engine
+from .core.incremental import IncrementalSSSP
 from .core.options import SweepOptions
 from .core.weighted import (PreparedWeightedGraph, WeightedConfig,
                             prepare_weighted)
 from .core.weighted import weighted_apsp as _weighted_apsp
 from .graph.csr import CSRGraph, resolve_device
+from .graph.dynamic import DynamicCSRGraph
 
 SEMIRING_NAMES = ("boolean", "tropical", "counting")
 
@@ -38,36 +49,103 @@ def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to repro_torch yet")
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """``cuda`` and ``cuda:0`` are one device when the current one is 0."""
+    def index(d):
+        if d.index is None and d.type == "cuda":
+            return torch.cuda.current_device()
+        return d.index
+    return a.type == b.type and index(a) == index(b)
+
+
 class DawnGraph:
     """Prepared-graph handle returned by :func:`prepare`.  The operands
-    are built once, lazily, on the handle's device."""
+    are built lazily on the handle's device and, on a mutable graph,
+    rebuilt when its content epoch has moved."""
 
-    def __init__(self, graph: CSRGraph, *, weights=None,
-                 options: Optional[SweepOptions] = None, device=None):
+    def __init__(self, graph: Union[CSRGraph, DynamicCSRGraph], *,
+                 weights=None, options: Optional[SweepOptions] = None,
+                 device=None):
+        if isinstance(graph, DynamicCSRGraph) and weights is not None:
+            raise ValueError(
+                "weights= with a DynamicCSRGraph is ambiguous — build the "
+                "dynamic graph with weights instead")
         self.device = resolve_device(device)
+        if isinstance(graph, DynamicCSRGraph) and not _same_device(
+                graph.device, self.device):
+            # its views, and the repair state of incremental(), lie on
+            # the dynamic graph's own device
+            raise ValueError(
+                f"the DynamicCSRGraph lies on {graph.device}, the handle on "
+                f"{self.device}: build it from a graph on the handle's "
+                f"device")
         self.graph = graph
         self.options = options or SweepOptions()
         self._weights = weights
         self._pg: Optional[PreparedGraph] = None
         self._pw: Optional[PreparedWeightedGraph] = None
 
+    # -- epoch-aware operand cache ----------------------------------------
+
+    @property
+    def epoch(self) -> int:
+        return int(getattr(self.graph, "epoch", 0))
+
+    @property
+    def mutable(self) -> bool:
+        return isinstance(self.graph, DynamicCSRGraph)
+
+    def _lane_weights(self):
+        if self._weights is not None:
+            return self._weights
+        if self.mutable and self.graph.weighted:
+            return self.graph.view_weights()
+        return None
+
     def prepared(self) -> PreparedGraph:
-        """The :class:`PreparedGraph` (boolean and counting operands) on
-        the device."""
-        if self._pg is None:
+        """The current epoch's :class:`PreparedGraph` (boolean and
+        counting operands) on the device.  A compaction alone keeps it:
+        the content is the same."""
+        if self._pg is None or self._pg.epoch != self.epoch:
+            self._pg = None             # drop the stale operands first
             self._pg = prepare_graph(self.graph, device=self.device)
         return self._pg
 
     def prepared_weighted(self) -> PreparedWeightedGraph:
-        """The :class:`PreparedWeightedGraph` (tropical operands) on the
-        device; needs the ``weights=`` given to :func:`prepare`."""
-        if self._weights is None:
+        """The current epoch's :class:`PreparedWeightedGraph` (tropical
+        operands) on the device; needs the ``weights=`` given to
+        :func:`prepare` or a weighted dynamic graph."""
+        w = self._lane_weights()
+        if w is None:
             raise ValueError("tropical semiring needs weights: "
-                             "prepare(graph, weights=...)")
-        if self._pw is None:
-            self._pw = prepare_weighted(self.graph, self._weights,
-                                        device=self.device)
+                             "prepare(graph, weights=...) or a weighted "
+                             "DynamicCSRGraph")
+        if self._pw is None or self._pw.epoch != self.epoch:
+            # drop the stale operands (a dense f32 operand on rmat16 is
+            # 17.2 GB) before the new ones are built
+            self._pw = None
+            self._pw = prepare_weighted(self.graph, w, device=self.device)
         return self._pw
+
+    # -- mutation passthrough (DynamicCSRGraph only) -----------------------
+
+    def _dynamic(self) -> DynamicCSRGraph:
+        if not self.mutable:
+            raise TypeError(
+                "graph is a static CSRGraph; prepare(DynamicCSRGraph...) "
+                "for mutation support")
+        return self.graph
+
+    def insert_edges(self, src, dst, weights=None) -> int:
+        return self._dynamic().insert_edges(src, dst, weights)
+
+    def delete_edges(self, src, dst) -> int:
+        return self._dynamic().delete_edges(src, dst)
+
+    def compact(self) -> None:
+        self._dynamic().compact()
+
+    # -- queries -----------------------------------------------------------
 
     def _check_semiring(self, semiring: str) -> None:
         if semiring not in SEMIRING_NAMES:
@@ -117,8 +195,16 @@ class DawnGraph:
                                                   lenient=True),
                            mesh=mesh)
 
-    def incremental(self, *args, **kwargs):
-        raise _not_ported("incremental repair (ROADMAP Queue 1 item 8)")
+    def incremental(self, sources, *, config=None) -> IncrementalSSSP:
+        """Streaming repair driver bound to this handle's dynamic graph
+        (frontier-seeded incremental BFS/SSSP — core/incremental.py).
+        Its state lies on the handle's device, which is the graph's."""
+        g = self._dynamic()
+        if config is None:
+            config = self.options.to(
+                WeightedConfig if g.weighted else EngineConfig,
+                lenient=True)
+        return IncrementalSSSP(g, sources, config=config)
 
     def serve(self, *args, **kwargs):
         raise _not_ported("the serving tier (ROADMAP Queue 1 item 9)")
@@ -128,21 +214,22 @@ class DawnGraph:
                           "item 12)")
 
 
-def prepare(graph: CSRGraph, *, weights=None,
+def prepare(graph: Union[CSRGraph, DynamicCSRGraph], *, weights=None,
             options: Optional[SweepOptions] = None, device=None,
             **opts) -> DawnGraph:
     """Entry point of the facade: wrap a graph in a :class:`DawnGraph`.
 
+    ``graph`` is a :class:`CSRGraph` or a :class:`DynamicCSRGraph`.
     ``options=`` takes a ready :class:`SweepOptions`; any extra keywords
     construct one (``prepare(g, source_batch=64, use_kernel=False)``).
     ``weights=`` attaches (m_pad,) lane weights (at least ``n_edges``
-    non-negative values in lane order) for the tropical semiring.
-    ``device=None`` means the card.
+    non-negative values in lane order) for the tropical semiring; a
+    dynamic graph carries its own.  ``device=None`` means the card; a
+    dynamic graph must lie on that device (``ValueError`` otherwise).
     """
-    if not isinstance(graph, CSRGraph):
-        raise _not_ported(f"{type(graph).__name__} (only a static CSRGraph "
-                          f"is ported; DynamicCSRGraph is ROADMAP Queue 1 "
-                          f"item 8)")
+    if not isinstance(graph, (CSRGraph, DynamicCSRGraph)):
+        raise TypeError(f"prepare() takes a CSRGraph or a DynamicCSRGraph, "
+                        f"not {type(graph).__name__}")
     if options is not None and opts:
         raise ValueError("pass options= or plain keywords, not both")
     return DawnGraph(graph, weights=weights,

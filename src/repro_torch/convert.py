@@ -1,8 +1,10 @@
-"""Carry a graph across from the JAX package.
+"""Carry a graph, or a repair state, across from the JAX package.
 
 The graph is the state both packages share: a test builds it once with
 the JAX package, hands its six CSR arrays over as numpy arrays, and runs
-both engines on the same lanes.
+both engines on the same lanes.  An incremental repair state crosses the
+same way, so that the port's ``repair`` can be held against the
+reference's on one input state.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from .core.incremental import IncrementalState
 from .graph.csr import CSRGraph, resolve_device
 
 
@@ -50,3 +53,21 @@ def lane_weights_from_array(lanes: np.ndarray, *, n_edges: int, m_pad: int,
     if not np.all(np.isposinf(a[n_edges:])):
         raise ValueError("lanes: the padded lanes must hold +inf")
     return torch.from_numpy(a).to(dev)
+
+
+def incremental_state_from(state, *, device=None) -> IncrementalState:
+    """The port's :class:`IncrementalState` from the JAX side's (its
+    ``sources``, ``dist``, ``parent``, ``weighted`` and ``epoch``, the
+    arrays as numpy arrays), with ``dist`` and ``parent`` on ``device``
+    (``None``: the card)."""
+    dev = resolve_device(device)
+    dist = np.array(state.dist, dtype=np.float32, copy=True)
+    parent = np.array(state.parent, dtype=np.int32, copy=True)
+    if dist.shape != parent.shape or dist.ndim != 2:
+        raise ValueError(f"dist {dist.shape} and parent {parent.shape}: "
+                         f"expected one (S, n) shape")
+    return IncrementalState(
+        sources=np.array(state.sources, dtype=np.int32, copy=True),
+        dist=torch.from_numpy(dist).to(dev),
+        parent=torch.from_numpy(parent).to(dev),
+        weighted=bool(state.weighted), epoch=int(state.epoch))

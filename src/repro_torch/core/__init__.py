@@ -1,11 +1,13 @@
 """The port's engine core: frontier packing, options, the sweep layer,
-the batched boolean APSP engine, the single-source drivers, the counting
-engine with centrality and the tropical (weighted) engine."""
+the batched boolean APSP engine, the single-source drivers and BFS
+baselines, connected components, the counting engine with centrality,
+the tropical (weighted) engine and incremental repair."""
+from .bfs import bfs_level_sync_torch, bfs_queue_numpy, bfs_scipy
 from .bovm import DawnState, bovm_msbfs, bovm_sssp, bovm_sweep
-from .centrality import (MEASURES, CentralityConfig, CentralityResult,
-                         CountingResult, betweenness, brandes_dependencies,
-                         centrality, closeness, counting_apsp,
-                         counting_apsp_blocks, eccentricity,
+from .centrality import (COUNTING_FORM_NAMES, MEASURES, CentralityConfig,
+                         CentralityResult, CountingResult, betweenness,
+                         brandes_dependencies, centrality, closeness,
+                         counting_apsp, counting_apsp_blocks, eccentricity,
                          eccentricity_sample, harmonic,
                          measure_counting_costs)
 from .engine import (ApspResult, EngineConfig, PreparedGraph, SweepStats,
@@ -14,13 +16,16 @@ from .engine import (ApspResult, EngineConfig, PreparedGraph, SweepStats,
                      sweep_costs)
 from .frontier import (UNREACHED, WORD, one_hot_frontier, pack_bits,
                        packed_width, popcount, unpack_bits)
+from .incremental import (IncrementalSSSP, IncrementalState, RepairResult,
+                          repair, sssp_state)
 from .options import SweepOptions
 from .sovm import (SovmState, reconstruct_path, sovm_msbfs, sovm_sssp,
                    sovm_sweep)
 from .sssp import SsspResult, apsp, apsp_dense, multi_source, sssp
-from .sweep import (BOOLEAN, COUNTING, DIRECTION_NAMES, PULL, PUSH, SPARSE,
-                    TROPICAL, Semiring, SweepState, boolean_forms,
-                    counting_forms, derive_parents, fused_form, make_state,
+from .sweep import (BOOLEAN, COUNTING, DIRECTION_NAMES, MIN_LABEL, PULL,
+                    PUSH, SEMIRINGS, SPARSE, TROPICAL, Semiring, SweepState,
+                    boolean_forms, counting_forms, derive_parents,
+                    fused_form, make_state, minlabel_form,
                     minplus_candidates, resolve_fused_steps, sweep_loop,
                     time_sweep_forms, tropical_forms)
 from .weighted import (WEIGHTED_FORM_NAMES, PreparedWeightedGraph,
@@ -28,3 +33,4 @@ from .weighted import (WEIGHTED_FORM_NAMES, PreparedWeightedGraph,
                        bucketed_sssp, dijkstra_oracle,
                        expand_integer_weights, measure_weighted_costs,
                        minplus_sssp, prepare_weighted, weighted_apsp)
+from .wcc import WccResult, wcc, wcc_stats

@@ -84,6 +84,7 @@ class PreparedGraph:
     graph: CSRGraph
     deg: torch.Tensor     # (n_pad,) float32 out-degrees (0 on pad)
     n_pad: int
+    epoch: int = 0        # content epoch of the source graph (0 = static)
     # per-graph sweep-cost measurements, keyed (s, bn, bk, pull_chunk, path)
     cost_cache: dict = dataclasses.field(default_factory=dict, repr=False)
     _adj: Optional[torch.Tensor] = dataclasses.field(default=None,
@@ -137,15 +138,24 @@ class PreparedGraph:
         return self._adj_pull_index
 
 
-def prepare_graph(g: CSRGraph, *, align: int = 128,
-                  device=None) -> PreparedGraph:
+def prepare_graph(g, *, align: int = 128, device=None) -> PreparedGraph:
     """Pad-size the graph and build the O(n) degree operand on ``device``
-    (``None``: the card); the dense operands materialize lazily."""
+    (``None``: the card); the dense operands materialize lazily.
+
+    Accepts a :class:`CSRGraph` or a
+    :class:`repro_torch.graph.dynamic.DynamicCSRGraph`: the latter
+    prepares its merged ``view()`` snapshot and records the content
+    ``epoch``, so that callers can tell a stale prepared graph (and its
+    indexes) from a current one."""
+    epoch = 0
+    if hasattr(g, "view"):            # DynamicCSRGraph duck-type
+        epoch = int(g.epoch)
+        g = g.view()
     g = g.to(resolve_device(device))
     n_pad = g.n_padded(align)
     deg = torch.zeros(n_pad, dtype=torch.float32, device=g.device)
     deg[: g.n_nodes] = g.out_degrees().to(torch.float32)
-    return PreparedGraph(graph=g, deg=deg, n_pad=n_pad)
+    return PreparedGraph(graph=g, deg=deg, n_pad=n_pad, epoch=epoch)
 
 
 # --------------------------------------------------------------------------

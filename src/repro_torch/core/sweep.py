@@ -1,11 +1,12 @@
 """The semiring sweep-operator layer — one loop under the engines.
 
-The port of the boolean, counting and tropical parts of
+The port of the boolean, counting, tropical and min-label parts of
 ``repro/core/sweep.py``.  A *sweep* extends all known shortest paths by
 one relaxation, skips settled targets (Thm 3.2) and the loop stops at the
 first sweep that settles nothing (Fact 1).  This module owns:
 
-  * :class:`Semiring`    — the algebra spec (boolean, counting, tropical);
+  * :class:`Semiring`    — the algebra spec (boolean, counting, tropical,
+    min-label; :data:`SEMIRINGS` by name);
   * the three boolean sweep *forms* over identical padded state — dense
     push, bit-packed pull, edge-parallel sparse scatter
     (:func:`boolean_forms`);
@@ -13,6 +14,8 @@ first sweep that settles nothing (Fact 1).  This module owns:
     over the (dist, sigma) pair (:func:`counting_forms`);
   * the two tropical (min,+) forms — dense min-plus product and sparse
     scatter-min relax over f32 distances (:func:`tropical_forms`);
+  * the min-label form — one min-scatter of int32 labels over the lanes
+    (:func:`minlabel_form`, connected components);
   * :class:`SweepState`  — the loop state (``frontier``, ``dist``,
     ``parent``, ``step``, ``sweeps``, ``edges_touched``, ``dir_counts``);
   * :func:`sweep_loop`   — the ONE loop driver of ``repro_torch/core``;
@@ -71,6 +74,12 @@ COUNTING = Semiring("counting", torch.int32, UNREACHED, 0,
 # Weighted shortest paths: (min, +) over f32 distances, +inf unreached.
 TROPICAL = Semiring("tropical", torch.float32, float("inf"), 0.0,
                     unit="f32 add+min lane / CSR relax lane")
+# Connected components: labels flow along the lanes under min; no
+# distance, so neither identity applies.
+MIN_LABEL = Semiring("min_label", torch.int32, None, None,
+                     unit="CSR min-scatter lane")
+
+SEMIRINGS = {s.name: s for s in (BOOLEAN, TROPICAL, MIN_LABEL, COUNTING)}
 
 _INF = float("inf")
 
@@ -331,6 +340,25 @@ def boolean_forms(adj, adj_pull, src_idx, dst_idx, *, n_pad: int, s: int,
         return new, dist, p
 
     return push, pull, sparse
+
+
+# --------------------------------------------------------------------------
+# min-label semiring form (connected components)
+# --------------------------------------------------------------------------
+
+def minlabel_form(src_idx, dst_idx) -> SweepForm:
+    """Min-label propagation sweep: ``labels[dst] ⊕= labels[src]`` with
+    ⊕ = min, one ``index_reduce_`` over the lanes.  Pass symmetrized edge
+    arrays for *weakly* connected components.  The frontier is the
+    changed-label set; Fact 1 is "no label lowered"."""
+    src_l, dst_l = src_idx.long(), dst_idx.long()
+
+    def sweep(f, labels, p, step):
+        nl = labels.clone()
+        nl.index_reduce_(labels.dim() - 1, dst_l, labels[..., src_l], "amin")
+        changed = nl < labels
+        return changed.to(torch.int8), nl, p
+    return sweep
 
 
 # --------------------------------------------------------------------------

@@ -160,17 +160,24 @@ class PreparedWeightedGraph:
         return self._relax_index
 
 
-def prepare_weighted(g: CSRGraph, weights=None, *, align: int = 128,
+def prepare_weighted(g, weights=None, *, align: int = 128,
                      device=None) -> PreparedWeightedGraph:
     """Normalize weights to the padded edge lanes and build the O(n)
     operands on ``device`` (``None``: the card); the dense weight matrix
     materializes lazily.  ``weights`` holds at least ``n_edges``
     non-negative values in lane order (numpy or a tensor); entries past
-    ``n_edges`` are ignored."""
-    if hasattr(g, "view"):
-        raise NotImplementedError(
-            "a DynamicCSRGraph is not ported to repro_torch yet (ROADMAP "
-            "Queue 1 item 8); pass a static CSRGraph")
+    ``n_edges`` are ignored.
+
+    Accepts a :class:`CSRGraph` (``weights`` required) or a weighted
+    :class:`repro_torch.graph.dynamic.DynamicCSRGraph` (lane weights come
+    from its merged view; the content ``epoch`` is recorded, so that
+    callers can tell a stale prepared graph from a current one)."""
+    epoch = 0
+    if hasattr(g, "view"):            # DynamicCSRGraph duck-type
+        epoch = int(g.epoch)
+        if weights is None:
+            weights = g.view_weights()
+        g = g.view()
     if weights is None:
         raise ValueError("prepare_weighted needs edge weights")
     if isinstance(weights, torch.Tensor):
@@ -189,7 +196,7 @@ def prepare_weighted(g: CSRGraph, weights=None, *, align: int = 128,
     deg[: g.n_nodes] = g.out_degrees().to(torch.float32)
     return PreparedWeightedGraph(graph=g,
                                  w_edges=torch.from_numpy(lanes).to(g.device),
-                                 deg=deg, n_pad=n_pad)
+                                 deg=deg, n_pad=n_pad, epoch=epoch)
 
 
 # --------------------------------------------------------------------------

@@ -275,6 +275,14 @@ class CSRGraph:
             (np.ones(len(src), dtype=np.int8), (src, dst)),
             shape=(self.n_nodes, self.n_nodes))
 
+    def memory_bytes(self, *, boolean_frontier: bool = True) -> int:
+        """DAWN's memory model (paper §3.4): CSR + distance + 2 bool arrays."""
+        n, m = self.n_nodes, self.n_edges
+        csr = 4 * m  # 4m for column indices (indptr amortized into n terms)
+        if boolean_frontier:
+            return csr + 3 * n          # distance-as-byte + two bool arrays
+        return csr + 8 * n              # BFS: 4n distance + 4n queue
+
 
 def symmetrize(src: np.ndarray, dst: np.ndarray):
     return (np.concatenate([src, dst]), np.concatenate([dst, src]))

@@ -1,6 +1,8 @@
 from .kernel import (fused_boolean_multisweep, fused_smem_bytes, fused_sweep,
                      packed_live_words, packed_pull_sweep, packed_push_sweep,
                      reset_launches)
+from .ops import (KernelDawnResult, msbfs_kernel, msbfs_packed,
+                  pack_adjacency_pull, sweep)
 from .ref import (fused_boolean_multisweep_ref, packed_live_words_ref,
                   packed_pull_ref, packed_push_ref, sweep_ref)
 

@@ -122,7 +122,6 @@ def test_unported_routes_raise(graphs):
     calls = {
         "item 11": lambda: h.apsp([0], mesh=object()),
         "item 10": lambda: h.apsp([0], checkpoint_dir="ckpt"),
-        "item 8": h.incremental,
         "item 9": h.serve,
         "item 12": h.tune,
     }
@@ -133,7 +132,11 @@ def test_unported_routes_raise(graphs):
         h.centrality([0], mesh=object())
     with pytest.raises(NotImplementedError, match="item 12"):
         repro_torch.prepare(tg, tuning=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # incremental repair is ported: it needs a dynamic graph, and prepare
+    # takes a CSRGraph or a DynamicCSRGraph and nothing else
+    with pytest.raises(TypeError, match="static CSRGraph"):
+        h.incremental([0])
+    with pytest.raises(TypeError, match="CSRGraph or a DynamicCSRGraph"):
         repro_torch.prepare(object(), device="cpu")
 
 
@@ -172,6 +175,8 @@ SLICE_MODULES = (
     "kernels/counting/ref.py",
     "core/weighted.py", "kernels/tropical/__init__.py",
     "kernels/tropical/kernel.py", "kernels/tropical/ref.py",
+    "core/wcc.py", "core/bfs.py", "kernels/bovm/ops.py",
+    "graph/dynamic.py", "core/incremental.py",
 )
 
 
@@ -185,7 +190,7 @@ def test_boundary_tests_scan_every_slice_module():
         assert PORT / rel in files, rel
     cores = {p.name for p in (PORT / "core").rglob("*.py")}
     assert {"bovm.py", "sovm.py", "sssp.py", "centrality.py",
-            "weighted.py"} <= cores
+            "weighted.py", "wcc.py", "bfs.py", "incremental.py"} <= cores
 
 
 def _imports(path: pathlib.Path):

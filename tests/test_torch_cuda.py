@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card against their plain versions, and
-the boolean, counting and tropical engines' kernel paths on the card
-against the CPU.  Needs an NVIDIA GPU and nvcc; without CUDA every test here skips.
+the boolean, counting and tropical engines' kernel paths and incremental
+repair (K9 resuming each repair) on the card against the CPU.  Needs an
+NVIDIA GPU and nvcc; without CUDA every test here skips.
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -8,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import repro_torch
 from repro_torch.core import pack_bits
 from repro_torch.core.centrality import CentralityConfig, counting_apsp
 from repro_torch.core.engine import EngineConfig, apsp_engine, prepare_graph
@@ -15,6 +17,7 @@ from repro_torch.core.weighted import (WeightedConfig, prepare_weighted,
                                        weighted_apsp)
 from repro_torch.graph import generators as gen
 from repro_torch.graph.csr import CSRGraph
+from repro_torch.graph.dynamic import DynamicCSRGraph
 from repro_torch.kernels import bovm, counting, tropical
 from repro_torch.kernels.bovm import ref as R
 
@@ -766,3 +769,177 @@ def test_operand_indexes_built_once_and_on_card_only(cuda):
     assert card_pw._wdense is None
     assert torch.equal(want.dist, got.dist.cpu())
     assert want.sweeps == got.sweeps
+
+
+# --------------------------------------------------------------------------
+# incremental repair on the card: K9 resumes each repair
+# --------------------------------------------------------------------------
+
+def _mutations(seed, n, rounds=5):
+    """Insert / delete batches near one node each round, as the
+    bench_dynamic stream makes them."""
+    rng = np.random.default_rng(seed)
+    out, history = [], []
+    for _ in range(rounds):
+        lo = int(rng.integers(0, n - 16))
+        u, v = rng.integers(lo, lo + 16, (2, 6))
+        keep = u != v
+        ins = (np.r_[u[keep], v[keep]], np.r_[v[keep], u[keep]])
+        dels = history.pop(0) if len(history) >= 2 else None
+        history.append(ins)
+        out.append((ins, rng.integers(4, 33, 2 * int(keep.sum())) / 8,
+                    dels))
+    return out
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_repair_on_card_matches_cpu(cuda, weighted):
+    g = gen.watts_strogatz(700, 6, 0.05, seed=4, device="cpu")
+    lanes = (np.random.default_rng(1).integers(4, 33, g.m_pad) / 8) \
+        .astype(np.float32) if weighted else None
+    dgs = [DynamicCSRGraph(g.to(dev), weights=lanes, compact_threshold=0.001)
+           for dev in ("cpu", cuda)]
+    cfg = WeightedConfig(mode="sparse") if weighted \
+        else EngineConfig(mode="sparse")
+    incs = [repro_torch.IncrementalSSSP(d, [0, 5, 99, 350, 699], config=cfg)
+            for d in dgs]
+    relaxed = 0
+    for it, (ins, w, dels) in enumerate(_mutations(7, g.n_nodes)):
+        for d in dgs:
+            d.insert_edges(*ins, w.astype(np.float32) if weighted else None)
+            if dels is not None:
+                d.delete_edges(*dels)
+            if it == 2:
+                d.compact()
+        want = incs[0].update()
+        before = tropical.sparse_relax_sweep.launches
+        got = incs[1].update()
+        assert (want.sweeps, want.tainted, want.seeded) == \
+            (got.sweeps, got.tainted, got.seeded)
+        assert torch.equal(want.state.dist, got.state.dist.cpu())
+        assert torch.equal(want.state.parent, got.state.parent.cpu())
+        assert got.state.dist.is_cuda
+        # one K9 launch per resumed sweep, the last (empty) one included
+        launched = tropical.sparse_relax_sweep.launches - before
+        assert launched == (got.sweeps + 1 if got.seeded else 0)
+        relaxed += launched
+    assert relaxed > 0
+    scratch, _ = repro_torch.sssp_state(dgs[1], [0, 5, 99, 350, 699],
+                                        config=cfg)
+    assert torch.equal(scratch.dist, incs[1].dist)
+    assert torch.equal(scratch.parent, incs[1].parent)
+
+
+def test_handle_indexes_are_new_after_a_mutation(cuda):
+    g = gen.rmat(9, 6, seed=3, device="cpu")
+    lanes = (np.random.default_rng(2).integers(4, 33, g.m_pad) / 8) \
+        .astype(np.float32)
+    dg = DynamicCSRGraph(g.to(cuda), weights=lanes)
+    h = repro_torch.prepare(dg, device=cuda)
+    pg, pw = h.prepared(), h.prepared_weighted()
+    old = (pg.adj_pull_index, pg.adj_index, pw.wdense_index, pw.relax_index)
+    builders = (bovm.packed_live_words, counting.nonzero_words,
+                tropical.finite_words, tropical.in_lanes)
+    before = [b.launches for b in builders]
+    h.compact()                          # content kept: nothing rebuilt
+    assert h.prepared() is pg and h.prepared_weighted() is pw
+    h.insert_edges([1, 2], [300, 301], np.array([0.5, 0.5], np.float32))
+    pg2, pw2 = h.prepared(), h.prepared_weighted()
+    assert pg2 is not pg and pw2 is not pw
+    assert pg2.epoch == pw2.epoch == dg.epoch
+    new = (pg2.adj_pull_index, pg2.adj_index, pw2.wdense_index,
+           pw2.relax_index)
+    for a, b in zip(old, new):
+        assert a is not b
+    assert [b.launches for b in builders] == [x + 1 for x in before]
+    res = h.apsp([0, 1, 2], semiring="tropical")
+    want = repro_torch.prepare(dg.view().to("cpu"),
+                               weights=dg.view_weights(),
+                               device="cpu").apsp([0, 1, 2],
+                                                  semiring="tropical")
+    assert torch.equal(res.dist.cpu(), want.dist)
+
+
+def test_unit_lane_index_follows_a_compaction(cuda):
+    g = gen.grid2d(20, 20, device="cpu")
+    dg = DynamicCSRGraph(g.to(cuda), compact_threshold=10.0)
+    inc = repro_torch.IncrementalSSSP(dg, [0, 399],
+                                      config=EngineConfig(mode="sparse"))
+    before = tropical.in_lanes.launches
+    i1 = inc.lane_index()
+    assert inc.lane_index() is i1
+    dg.delete_edges([0, 1], [1, 2])
+    dg.insert_edges([0], [21])
+    i2 = inc.lane_index()
+    dg.compact()                         # lanes re-laid out, same epoch
+    i3 = inc.lane_index()
+    assert i2 is not i1 and i3 is not i2
+    assert tropical.in_lanes.launches == before + 3
+    view = dg.view()
+    w = torch.where(view.src < view.n_nodes, 1.0, float("inf")) \
+        .to(torch.float32)
+    want = tropical.in_lanes_ref(view.src.cpu(), view.dst.cpu(), w.cpu(),
+                                 view.n_padded(128),
+                                 tropical.kernel.HUB_LANES)
+    for a, b in zip(tropical.in_lanes_sorted(want),
+                    tropical.in_lanes_sorted(i3)):
+        assert torch.equal(a, b.cpu())
+    res = inc.update()
+    assert res.tainted > 0
+    scratch, _ = repro_torch.sssp_state(dg, [0, 399],
+                                        config=EngineConfig(mode="sparse"))
+    assert torch.equal(scratch.dist, inc.dist)
+    assert torch.equal(scratch.parent, inc.parent)
+
+
+def test_msbfs_drivers_on_card_match_cpu(cuda):
+    g = gen.watts_strogatz(511, 6, 0.05, seed=9, device="cpu")
+    n = 512
+    adj = g.to_dense_padded(n)
+    sources = torch.arange(0, 256, 2)
+    want = bovm.msbfs_kernel(adj, sources, max_steps=n, bk=128)
+    before = (bovm.fused_sweep.launches, bovm.packed_pull_sweep.launches,
+              bovm.packed_live_words.launches)
+    got = bovm.msbfs_kernel(adj.to(cuda), sources.to(cuda), max_steps=n,
+                            bk=128)
+    assert torch.equal(want.dist, got.dist.cpu())
+    assert want.sweeps == got.sweeps
+    assert bovm.fused_sweep.launches == before[0] + got.sweeps
+    packed = bovm.pack_adjacency_pull(adj.to(cuda))
+    got = bovm.msbfs_packed(packed, sources.to(cuda), n, max_steps=n, wk=4)
+    assert torch.equal(want.dist, got.dist.cpu())
+    assert bovm.packed_pull_sweep.launches == before[1] + got.sweeps
+    assert bovm.packed_live_words.launches == before[2] + 1
+
+
+def test_single_sweep_on_card_launches_k4_or_raises(cuda):
+    g = gen.erdos_renyi(255, 4.0, seed=8, device="cpu")
+    n = 256
+    adj = g.to_dense_padded(n)
+    rng = np.random.default_rng(0)
+    f = torch.from_numpy((rng.random((8, n)) < 0.1).astype(np.int8))
+    d = torch.from_numpy(np.where(rng.random((8, n)) < 0.3, 1, -1)
+                         .astype(np.int32))
+    want = bovm.sweep(f, adj, d, 2, bs=8, bn=128, bk=128)
+    before = bovm.fused_sweep.launches
+    got = bovm.sweep(f.to(cuda), adj.to(cuda), d.to(cuda), 2, bs=8,
+                     bn=128, bk=128)
+    _same(want, got)
+    assert bovm.fused_sweep.launches == before + 1
+    # tiles that do not divide the shapes: the plain version on the CPU,
+    # a refused launch on the card, never a plain run there
+    _same(want, bovm.sweep(f, adj, d, 2, bs=16))
+    with pytest.raises(ValueError, match="tiles do not divide"):
+        bovm.sweep(f.to(cuda), adj.to(cuda), d.to(cuda), 2, bs=16)
+    assert bovm.fused_sweep.launches == before + 1
+
+
+def test_dynamic_graph_on_another_device_is_refused(cuda):
+    g = gen.grid2d(8, 8, device="cpu")
+    with pytest.raises(ValueError, match="handle's device"):
+        repro_torch.prepare(DynamicCSRGraph(g), device=cuda)
+    with pytest.raises(ValueError, match="handle's device"):
+        repro_torch.prepare(DynamicCSRGraph(g.to(cuda)), device="cpu")
+    h = repro_torch.prepare(DynamicCSRGraph(g.to("cuda:0")), device=cuda)
+    inc = h.incremental([0, 9])
+    assert inc.dist.is_cuda and h.prepared().adj_pull.is_cuda

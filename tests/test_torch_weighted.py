@@ -20,6 +20,7 @@ from repro.graph import generators as jgen
 from repro.graph.csr import CSRGraph as JCSR
 from repro_torch.convert import csr_from_arrays, lane_weights_from_array
 from repro_torch.graph.csr import CSRGraph as TCSR
+from repro_torch.graph.dynamic import DynamicCSRGraph
 from repro_torch.kernels import tropical as tkern
 import repro_torch
 
@@ -131,12 +132,13 @@ def test_prepare_weighted_matches_jax():
     with pytest.raises(ValueError, match="weights"):
         tw.prepare_weighted(carry(jg), w[:3], device="cpu")
 
-    class Dynamic:
-        def view(self):
-            raise AssertionError("never reached")
-
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tw.prepare_weighted(Dynamic(), w, device="cpu")
+    # a weighted dynamic graph brings its own lanes and content epoch
+    dg = DynamicCSRGraph(carry(jg), weights=pt.w_edges)
+    assert dg.insert_edges([9], [0], np.array([0.25], np.float32)) == 1
+    pd = tw.prepare_weighted(dg, device="cpu")
+    assert pd.epoch == dg.epoch == 1
+    assert torch.equal(pd.graph.src, dg.view().src)
+    np.testing.assert_array_equal(pd.w_edges.numpy(), dg.view_weights())
 
 
 # --------------------------------------------------------------------------
