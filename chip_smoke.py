@@ -48,7 +48,32 @@ scratch run may be K9 too).  Each line prints the repair and scratch
 sweeps and host seconds, the K9 and ``in_lanes`` launches of the
 repairs, the seconds in ``view()`` and the peak device memory; every
 source's row of the final graph is held to scipy, directly and through
-the facade.  Each kernel line carries its launches on every path
+the facade.
+
+Then the serving tier (phase ``serve``), through ``prepare(rmat16,
+weights=w).serve(...)`` under a virtual clock with ``bench_serving``'s
+workload recipe (copied here): stream A, 10,000 queries from a Zipf-hot
+pool of 96 sources (60 % point-to-point, 20 % ``k_nearest=8``, 20 % full
+rows) over 16 landmarks and a 96-row cache; stream B, 2,000 weighted
+queries (K9 flushes); stream C, 1,000 queries on a pinned-push handle
+with no oracle (every miss a K1 flush) and 64 analytics queries; the
+epoch guard over a ``DynamicCSRGraph`` mutated by one round of the
+dynamic phase's recipe; and a deadline run.  Every answer is held to
+scipy (BFS, Dijkstra, float64 analytics); the certified count comes from
+a replay on a bare ``DistanceOracle``.  Stream B must launch K9 and
+stream C K1 on their own, and before the phase K1 and K9 are held bit
+for bit against their plain versions at the flushes' 32 rows (phase
+``serve_kernels``).  Last, resumable jobs (phase
+``jobs``): ``prepare(rmat16, ...).apsp(512 sources, semiring=...,
+checkpoint_dir=...)`` in chunks of 128 for the boolean (pinned push,
+K1), counting (pinned push, K5) and tropical (default, K9) workloads, a
+full run, a run killed after its second chunk and its resumed run, all
+bit-identical to one ``apsp`` call, 16 rows held to the host; and one
+CUDA leaf saved with ``blocking=False`` and overwritten at once.  Each
+job run must launch its workload's kernel; the plain call is a
+comparison and its launches are taken back out.  The launch counts are
+set to 0 before each of these two paths and read after.
+Each kernel line carries its launches on every path
 (``launches_by_path``) and their sum (``launches``).
 One JSON line per phase; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -97,6 +122,21 @@ DYN_COMPACT_AFTER = 3        # the round after which the graph is compacted
 # betweenness: float32 dependency sums (atomic scatter-adds in any order,
 # a few thousand terms per hub) against a float64 Brandes on the host
 BETWEENNESS_RTOL = 1e-5
+# harmonic centrality: float32 sums of 1/d over <= 4096 terms per chunk,
+# against a float64 sum on the host
+HARMONIC_RTOL = 1e-5
+SERVE_POOL = 96              # the serving streams' hot-source pool
+SERVE_LANDMARKS = 16
+SERVE_BATCH = 32             # max_batch and the handles' source_batch
+SERVE_K = 8                  # k of the k-nearest queries
+SERVE_QPS = 5000.0           # offered rate of the open loop (virtual)
+SERVE_QUERIES = 10_000       # stream A
+SERVE_WEIGHTED = 2_000       # stream B
+SERVE_PUSH = 1_000           # stream C
+SERVE_ANALYTICS = 64         # analytics queries after stream C
+SERVE_EPOCH = 256            # queries on each side of the mutation
+JOB_SOURCES = 512            # sources of the jobs phase
+JOB_CHUNK = 128              # its chunk size
 # float32 running sum of degrees over <= ~1,000 per-sweep partial sums,
 # each a tree reduction of < 2^24-exact terms: relative error stays
 # below (1,000 + 24) * 2^-24 ~ 6.1e-5
@@ -454,6 +494,584 @@ def dynamic_run(torch, repro_torch, tropical, name, g, sources, lanes,
                     peak, torch.cuda.max_memory_allocated()),
                 rows_checked=int(len(check)), k9_view_checks=len(stream),
                 rounds=rounds)
+
+
+class VirtualClock:
+    """The serving phase's clock: an arrival sets it forward to its
+    scheduled instant, and each submit / tick / flush advances it by that
+    call's measured host time (``bench_serving``'s open loop)."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def __call__(self) -> float:
+        return self.now
+
+
+def serve_stream(n, n_queries, seed, mix):
+    """``bench_serving``'s workload recipe (``_make_stream``), copied: a
+    Zipf-hot pool of ``SERVE_POOL`` sources, uniform targets, query kinds
+    drawn with probabilities ``mix`` (point-to-point, k-nearest, full
+    row) and Poisson arrivals at ``SERVE_QPS``.  -> (pool,
+    [(kind, source, target)], arrivals)"""
+    rng = np.random.default_rng(seed)
+    pool = rng.choice(n, size=min(SERVE_POOL, n), replace=False)
+    w = 1.0 / np.arange(1, len(pool) + 1)          # Zipf weights
+    w /= w.sum()
+    sources = rng.choice(pool, size=n_queries, p=w)
+    targets = rng.integers(0, n, size=n_queries)
+    kinds = rng.choice(3, size=n_queries, p=list(mix))
+    arrivals = np.cumsum(rng.exponential(1.0 / SERVE_QPS, size=n_queries))
+    return pool, list(zip(kinds.tolist(), sources.tolist(),
+                          targets.tolist())), arrivals
+
+
+def serve_drive(svc, query, stream, arrivals, clock, acc, weighted=False,
+                qid0=0):
+    """Open loop: submit at the scheduled virtual instants, ``tick()``
+    after each arrival (size-threshold flushing only: no deadline, no
+    ``max_wait``), drain with ``flush()``.  Adds the host seconds and the
+    count of the flushes to ``acc``; returns the completed queries."""
+    def timed(call):
+        t0 = time.perf_counter()
+        out = call()
+        dt = time.perf_counter() - t0
+        clock.now += dt
+        return out, dt
+
+    for i, ((kind, s, t), at) in enumerate(zip(stream, arrivals)):
+        clock.now = max(clock.now, float(at))
+        if kind == 0:
+            q = query(qid=qid0 + i, source=s, target=t, weighted=weighted)
+        elif kind == 1:
+            q = query(qid=qid0 + i, source=s, k_nearest=SERVE_K)
+        else:
+            q = query(qid=qid0 + i, source=s, weighted=weighted)
+        timed(lambda: svc.submit(q))
+        while True:
+            served, dt = timed(svc.tick)
+            if not served:
+                break
+            acc["flush_seconds"] += dt
+            acc["flushes"] += 1
+    while svc.pending():
+        _, dt = timed(svc.flush)
+        acc["flush_seconds"] += dt
+        acc["flushes"] += 1
+    return svc.drain_completed()
+
+
+def serve_check(what, done, rows, select_top_k):
+    """Every completed answer against the host row of its source (scipy
+    BFS int32 rows, or scipy Dijkstra float64 rows when weighted); a
+    k-nearest list against ``select_top_k`` on that row, once per
+    source."""
+    nearest = {}
+    for q in done:
+        if q.expired:
+            raise AssertionError(f"{what}: query {q.qid} expired in a "
+                                 f"no-deadline run")
+        row = rows[q.source]
+        if q.target is not None:
+            got = q.cost if q.weighted else q.hops
+            if got != row[q.target]:
+                raise AssertionError(f"{what}: query {q.qid} "
+                                     f"({q.served_by}) {got} != "
+                                     f"{row[q.target]}")
+        elif q.k_nearest is not None:
+            if q.source not in nearest:
+                nearest[q.source] = select_top_k(row, q.source, q.k_nearest)
+            if q.nearest != nearest[q.source]:
+                raise AssertionError(f"{what}: query {q.qid} "
+                                     f"({q.served_by}) k-nearest differs")
+        elif not np.array_equal(q.dist.astype(row.dtype), row):
+            raise AssertionError(f"{what}: query {q.qid} ({q.served_by}) "
+                                 f"row differs")
+
+
+def serve_kernel_check(torch, repro_torch, g, lanes, sources):
+    """K1 and K9 at the serving flushes' shape (S = ``SERVE_BATCH``), each
+    one sweep on a mid-run rmat16 state from serving sources, held
+    bit-identical to its plain version.  K1 runs on the operand and
+    live-word index of the pinned-push handle stream C serves, after
+    ``mid_step`` engine sweeps; K9 on the weighted handle's lanes and
+    in-lane index, after ``mid_step`` relax sweeps.  These launches are
+    comparisons: the counts are put back as they were.  Returns the
+    phase line's fields."""
+    from repro_torch.core.engine import EngineConfig, apsp_engine_blocks
+    from repro_torch.core.frontier import pack_bits
+    from repro_torch.core.sweep import _pull_kernel_wk
+    from repro_torch.kernels import bovm, tropical
+    from repro_torch.kernels.bovm import ref as R
+    from repro_torch.kernels.tropical import ref as TR
+    mid_step = 2
+    kernels = (bovm.packed_push_sweep, bovm.packed_live_words,
+               tropical.sparse_relax_sweep, tropical.in_lanes)
+    saved = [k.launches for k in kernels]
+    try:
+        pg = repro_torch.prepare(g, mode="push",
+                                 source_batch=SERVE_BATCH).prepared()
+        cfg = EngineConfig(mode="push", use_kernel=True, max_steps=mid_step,
+                           source_batch=SERVE_BATCH)
+        _, _, st = next(apsp_engine_blocks(pg, sources, config=cfg))
+        fp, d = pack_bits(st.frontier != 0), st.dist.contiguous()
+        at = pg.adj_pull
+        got = bovm.packed_push_sweep(fp, at, d, mid_step + 1,
+                                     bs=SERVE_BATCH, bn=cfg.bn,
+                                     wk=_pull_kernel_wk(at.shape[1]),
+                                     index=pg.adj_pull_index)
+        want = R.packed_pull_ref(fp, at, d, mid_step + 1)
+        if fp.shape[0] != SERVE_BATCH or not all(
+                torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"serve: K1 at S={fp.shape[0]} differs "
+                                 f"from its plain version")
+        k1_new = int((want[0] != 0).sum())
+        del pg, st, fp, d, got, want
+        pw = repro_torch.prepare(g, weights=lanes).prepared_weighted()
+        wg, lw, idx = pw.graph, pw.w_edges, pw.relax_index
+        src = torch.from_numpy(np.asarray(sources, np.int64)).cuda()
+        f = torch.zeros((len(src), pw.n_pad), dtype=torch.int8,
+                        device="cuda")
+        f[torch.arange(len(src), device="cuda"), src] = 1
+        d = torch.where(f != 0, 0.0, float("inf")).to(torch.float32)
+        for _ in range(mid_step):
+            f, d = tropical.sparse_relax_sweep(f, d, wg.src, wg.dst, lw,
+                                               index=idx)
+        got = tropical.sparse_relax_sweep(f, d, wg.src, wg.dst, lw,
+                                          index=idx)
+        want = TR.sparse_relax_ref(f, d, wg.src, wg.dst, lw)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"serve: K9 at S={len(src)} differs from "
+                                 f"its plain version")
+        k9_new = int((want[0] != 0).sum())
+        del pw, f, d, got, want
+    finally:
+        for k, c in zip(kernels, saved):
+            k.launches = c
+    if not (k1_new and k9_new):
+        raise AssertionError("serve: a kernel check discovered nothing")
+    torch.cuda.empty_cache()
+    return dict(sources=len(sources), state=f"after {mid_step} sweeps",
+                k1_discovered=k1_new, k9_lowered=k9_new,
+                max_abs_err=0.0)
+
+
+def serve_run(torch, repro_torch, all_kernels, g, lanes):
+    """The serving tier through ``prepare(rmat16, weights=w).serve(...)``
+    under a virtual clock: stream A (bench_serving's mix, 60 %
+    point-to-point, 20 % k-nearest, 20 % full rows, over the landmark
+    oracle and the row cache), stream B (weighted, 60 % point-to-point,
+    40 % full rows: K9 flushes), stream C (a pinned-push handle with no
+    oracle, every miss a K1 flush) plus analytics queries, the epoch guard
+    over a mutated ``DynamicCSRGraph``, and a deadline run.  Returns one
+    line of fields per stream."""
+    import repro_torch.serve.engine as serve_engine
+    from collections import defaultdict
+    from repro_torch.serve import select_top_k
+    GraphQuery = repro_torch.GraphQuery
+    n = g.n_nodes
+    lines = []
+
+    def counts():
+        return {k.__name__: k.launches for k in all_kernels}
+
+    def launched(before):
+        return {k: v - before[k] for k, v in counts().items()
+                if v != before[k]}
+
+    acc = defaultdict(float)
+
+    def timed(fn, key):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                acc[key] += time.perf_counter() - t0
+        return wrapper
+
+    plain_top_k = serve_engine.select_top_k
+    serve_engine.select_top_k = timed(plain_top_k, "select_top_k_seconds")
+    try:
+        # -- stream A and B: one weighted service -----------------------
+        clock = VirtualClock()
+        h = repro_torch.prepare(g, weights=lanes, source_batch=SERVE_BATCH)
+        svc = h.serve(max_batch=SERVE_BATCH, n_landmarks=SERVE_LANDMARKS,
+                      row_cache_size=SERVE_POOL, completed_retention=None,
+                      clock=clock)
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        oracle = svc.oracle                      # the label build
+        torch.cuda.synchronize()
+        label_s = time.perf_counter() - t0
+        label_launches = launched(before)
+        for name in ("query", "top_k", "landmark_row", "predicted_sweeps"):
+            setattr(oracle, name, timed(getattr(oracle, name),
+                                        "oracle_seconds"))
+        pool, stream, arrivals = serve_stream(n, SERVE_QUERIES, SEED + 10,
+                                              (0.6, 0.2, 0.2))
+        acc.clear()
+        before = counts()
+        t0 = time.perf_counter()
+        done = serve_drive(svc, GraphQuery, stream, arrivals, clock, acc)
+        wall = time.perf_counter() - t0
+        got_launches = launched(before)
+        rows = dict(zip(pool.tolist(), scipy_dist(g, pool)))
+        serve_check("serve/A", done, rows, select_top_k)
+        if len(done) != SERVE_QUERIES:
+            raise AssertionError(f"serve/A: {len(done)} answers")
+        # certified count: the stream replayed on a bare oracle, which
+        # shares the service's label tables (cached on the same prepared
+        # graph) and only drops the timing wrappers (a source's top-k
+        # certificate is a function of the source: asked once per source)
+        bare = repro_torch.DistanceOracle(svc.prepared,
+                                          n_landmarks=SERVE_LANDMARKS)
+        certified, topk = 0, {}
+        for kind, s, t in stream:
+            if kind == 0:
+                certified += bool(bare.query(s, t).exact)
+            elif kind == 1:
+                if s not in topk:
+                    topk[s] = bare.top_k(s, SERVE_K) is not None
+                certified += topk[s]
+            else:
+                certified += bare.landmark_row(s) is not None
+        lat = np.asarray([q.t_done - q.t_submit for q in done])
+        hits = svc.cache_hits + svc.oracle_hits
+        lines.append(dict(
+            stream="A", queries=len(done), pool=len(pool),
+            n_landmarks=oracle.n_landmarks,
+            labels_checksum=oracle.labels_checksum(),
+            certified_count=int(certified),
+            certified_fraction=certified / len(done),
+            hit_rate=hits / len(done), cache_hits=svc.cache_hits,
+            oracle_hits=svc.oracle_hits, sweep_served=svc.sweep_served,
+            flushes=int(acc["flushes"]), flush_seconds=acc["flush_seconds"],
+            oracle_seconds=acc["oracle_seconds"],
+            select_top_k_seconds=acc["select_top_k_seconds"],
+            label_build_seconds=label_s, label_launches=label_launches,
+            seconds=wall, p50_latency_us=float(np.percentile(lat, 50) * 1e6),
+            p99_latency_us=float(np.percentile(lat, 99) * 1e6),
+            launches=got_launches, checked=len(done)))
+        # stream B: weighted queries on the same service
+        pool_b, stream_b, arr_b = serve_stream(n, SERVE_WEIGHTED, SEED + 11,
+                                               (0.6, 0.0, 0.4))
+        arr_b = arr_b + clock.now
+        acc.clear()
+        hits0 = (svc.cache_hits, svc.sweep_served)
+        before = counts()
+        t0 = time.perf_counter()
+        done = serve_drive(svc, GraphQuery, stream_b, arr_b, clock, acc,
+                           weighted=True, qid0=SERVE_QUERIES)
+        wall = time.perf_counter() - t0
+        got_launches = launched(before)
+        if got_launches.get("sparse_relax_sweep", 0) < 1:
+            raise AssertionError("serve/B: no weighted flush launched K9")
+        rows = dict(zip(pool_b.tolist(), scipy_dijkstra(g, lanes, pool_b)))
+        serve_check("serve/B", done, rows, select_top_k)
+        if len(done) != SERVE_WEIGHTED or not all(
+                q.dist is None or q.dist.dtype == np.float32 for q in done):
+            raise AssertionError("serve/B: answers missing or not float32")
+        lines.append(dict(
+            stream="B", queries=len(done), pool=len(pool_b),
+            cache_hits=svc.cache_hits - hits0[0],
+            sweep_served=svc.sweep_served - hits0[1],
+            flushes=int(acc["flushes"]), flush_seconds=acc["flush_seconds"],
+            seconds=wall, launches=got_launches, checked=len(done)))
+        del svc, h, oracle, bare, done
+        torch.cuda.empty_cache()
+
+        # -- stream C: pinned push, no oracle; analytics -----------------
+        clock = VirtualClock()
+        h = repro_torch.prepare(g, mode="push", source_batch=SERVE_BATCH)
+        svc = h.serve(max_batch=SERVE_BATCH, n_landmarks=0,
+                      row_cache_size=SERVE_POOL, completed_retention=None,
+                      clock=clock)
+        pool_c, stream_c, arr_c = serve_stream(n, SERVE_PUSH, SEED + 12,
+                                               (0.6, 0.2, 0.2))
+        acc.clear()
+        before = counts()
+        t0 = time.perf_counter()
+        done = serve_drive(svc, GraphQuery, stream_c, arr_c, clock, acc)
+        wall = time.perf_counter() - t0
+        got_launches = launched(before)
+        if got_launches.get("packed_push_sweep", 0) < 1:
+            raise AssertionError("serve/C: no pinned-push flush launched K1")
+        rows_c = scipy_dist(g, pool_c)
+        rows = dict(zip(pool_c.tolist(), rows_c))
+        serve_check("serve/C", done, rows, select_top_k)
+        line = dict(stream="C", queries=len(done), pool=len(pool_c),
+                    cache_hits=svc.cache_hits, oracle_hits=svc.oracle_hits,
+                    sweep_served=svc.sweep_served,
+                    flushes=int(acc["flushes"]),
+                    flush_seconds=acc["flush_seconds"],
+                    select_top_k_seconds=acc["select_top_k_seconds"],
+                    seconds=wall, launches=got_launches, checked=len(done))
+        measures = ("closeness", "harmonic", "eccentricity")
+        before = counts()
+        t0 = time.perf_counter()
+        for i, s in enumerate(pool_c[:SERVE_ANALYTICS].tolist()):
+            svc.submit(GraphQuery(qid=SERVE_PUSH + i, source=s,
+                                  analytics=measures))
+        while svc.pending():
+            svc.flush()
+        adone = svc.drain_completed()
+        line.update(analytics_queries=len(adone),
+                    analytics_seconds=time.perf_counter() - t0,
+                    analytics_launches=launched(before))
+        if len(adone) != SERVE_ANALYTICS:
+            raise AssertionError(f"serve/C: {len(adone)} analytics answers")
+        for q, d in zip(adone, rows_c[:SERVE_ANALYTICS]):
+            reach = d > 0
+            r, tot = int(reach.sum()), int(d[reach].sum())
+            clo = (r / max(n - 1, 1)) * (r / tot) if tot > 0 else 0.0
+            har = float((1.0 / d[reach]).sum())
+            got = q.analytics_result
+            if not (got["eccentricity"] == int(d.max(initial=0))
+                    and np.isclose(got["closeness"], clo, rtol=1e-12,
+                                   atol=0.0)
+                    and np.isclose(got["harmonic"], har,
+                                   rtol=HARMONIC_RTOL, atol=0.0)):
+                raise AssertionError(f"serve/C: analytics of {q.source} "
+                                     f"{got} differ from the host's "
+                                     f"({clo}, {har})")
+        lines.append(line)
+        del svc, h, done, adone
+        torch.cuda.empty_cache()
+
+        # -- the epoch guard over a mutated DynamicCSRGraph ----------------
+        clock = VirtualClock()
+        dg = repro_torch.DynamicCSRGraph(g)
+        h = repro_torch.prepare(dg, source_batch=SERVE_BATCH)
+        svc = h.serve(max_batch=SERVE_BATCH, n_landmarks=SERVE_LANDMARKS,
+                      row_cache_size=SERVE_POOL, completed_retention=None,
+                      clock=clock)
+        pool_e, stream_e, arr_e = serve_stream(n, 2 * SERVE_EPOCH,
+                                               SEED + 13, (0.6, 0.2, 0.2))
+        acc.clear()
+        before = counts()
+        t0 = time.perf_counter()
+        first = serve_drive(svc, GraphQuery, stream_e[:SERVE_EPOCH],
+                            arr_e[:SERVE_EPOCH], clock, acc)
+        invalidations = svc.epoch_invalidations
+        ins_src, ins_dst, _, del_src, del_dst = record_stream(
+            n, 1, DYN_PER_ROUND, SEED + 13)[0]
+        h.insert_edges(ins_src, ins_dst)
+        if del_src.size:
+            h.delete_edges(del_src, del_dst)
+        done = serve_drive(svc, GraphQuery, stream_e[SERVE_EPOCH:],
+                           arr_e[SERVE_EPOCH:] + clock.now, clock, acc,
+                           qid0=SERVE_EPOCH)
+        wall = time.perf_counter() - t0
+        serve_check("serve/epoch before", first,
+                    dict(zip(pool_e.tolist(), scipy_dist(g, pool_e))),
+                    select_top_k)
+        view = dg.view()
+        serve_check("serve/epoch after", done,
+                    dict(zip(pool_e.tolist(), scipy_dist(view, pool_e))),
+                    select_top_k)
+        if (invalidations, svc.epoch_invalidations) != (0, 1) or \
+                svc.prepared.epoch != dg.epoch or dg.epoch != 1:
+            raise AssertionError(
+                f"serve/epoch: {svc.epoch_invalidations} invalidations, "
+                f"prepared at epoch {svc.prepared.epoch}, graph at "
+                f"{dg.epoch}")
+        lines.append(dict(stream="epoch", queries=2 * SERVE_EPOCH,
+                          inserted=int(ins_src.size),
+                          epoch_invalidations=svc.epoch_invalidations,
+                          epoch=dg.epoch,
+                          labels_checksum=svc.oracle.labels_checksum(),
+                          flushes=int(acc["flushes"]), seconds=wall,
+                          launches=launched(before),
+                          checked=len(done) + SERVE_EPOCH))
+        del svc, h, dg, view, first, done
+        torch.cuda.empty_cache()
+
+        # -- a deadline run: expired queries are surfaced, not dropped -----
+        clock = VirtualClock()
+        svc = repro_torch.prepare(g, source_batch=8).serve(max_batch=8,
+                                                           clock=clock)
+        for i in range(4):
+            svc.submit(GraphQuery(qid=i, source=int(pool[i]), target=n - 1,
+                                  deadline=0.01))
+        clock.now = 1.0
+        svc.flush()
+        done = svc.drain_completed()
+        if len(done) != 4 or svc.expired_count != 4 or not all(
+                q.expired and q.served_by == "expired" and q.hops is None
+                for q in done):
+            raise AssertionError("serve/deadline: expired queries were not "
+                                 "surfaced")
+        lines.append(dict(stream="deadline", queries=4,
+                          expired=svc.expired_count))
+        del svc
+    finally:
+        serve_engine.select_top_k = plain_top_k
+    return lines
+
+
+def jobs_run(torch, repro_torch, all_kernels, g, lanes, sources):
+    """Resumable jobs through ``prepare(rmat16, ...).apsp(sources,
+    semiring=..., checkpoint_dir=...)``: per workload a full run, a run
+    killed by ``on_chunk`` after its second chunk, and its resumed run,
+    held bit-identical to each other and to one ``apsp`` call without a
+    checkpoint, rows held to scipy; then one CUDA leaf saved with
+    ``blocking=False`` and overwritten at once.  Each of the three job
+    runs must launch its workload's kernel; the plain ``apsp`` call is a
+    comparison, and its launches are taken back out of the counts.
+    Returns one line of fields per workload and one for the snapshot
+    check."""
+    import shutil
+    import tempfile
+    from repro_torch.train import checkpoint as ckpt
+
+    def counts():
+        return {k.__name__: k.launches for k in all_kernels}
+
+    def launched(before):
+        return {k: v - before[k] for k, v in counts().items()
+                if v != before[k]}
+
+    class Preempt(RuntimeError):
+        pass
+
+    def kill(k):
+        if k == 1:
+            raise Preempt(f"injected preemption after chunk {k}")
+
+    check = sources[:: len(sources) // N_CHECK][:N_CHECK]
+    rows = np.searchsorted(sources, check)
+    want_dist, want_sigma = host_counts(g, check)
+    want_w = scipy_dijkstra(g, lanes, check)
+    runs = {"boolean": dict(mode="push"), "counting": dict(mode="push"),
+            "tropical": {}}
+    kernel_of = {"boolean": "packed_push_sweep",
+                 "counting": "fused_counting_sweep",
+                 "tropical": "sparse_relax_sweep"}
+    lines = []
+    root = tempfile.mkdtemp(prefix="chip_smoke_jobs_")
+    try:
+        for workload, opts in runs.items():
+            h = repro_torch.prepare(
+                g, weights=lanes if workload == "tropical" else None, **opts)
+            kw = dict(semiring=workload, chunk_size=JOB_CHUNK,
+                      checkpoint_interval=1)
+            full_dir, kill_dir = (tempfile.mkdtemp(dir=root)
+                                  for _ in range(2))
+            per_run = {}
+            before = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            full = h.apsp(sources, checkpoint_dir=full_dir, **kw)
+            full_s = time.perf_counter() - t0
+            per_run["full"] = launched(before)
+            before = counts()
+            try:
+                h.apsp(sources, checkpoint_dir=kill_dir, on_chunk=kill, **kw)
+                raise AssertionError(f"jobs/{workload}: the kill did not "
+                                     f"fire")
+            except Preempt:
+                pass
+            per_run["killed"] = launched(before)
+            before = counts()
+            t0 = time.perf_counter()
+            res = h.apsp(sources, checkpoint_dir=kill_dir, **kw)
+            resume_s = time.perf_counter() - t0
+            per_run["resumed"] = launched(before)
+            for run, got in per_run.items():
+                if got.get(kernel_of[workload], 0) < 1:
+                    raise AssertionError(f"jobs/{workload}: the {run} run "
+                                         f"never launched "
+                                         f"{kernel_of[workload]}")
+            # the plain call is a comparison: its launches do not count
+            before = counts()
+            single = h.apsp(sources, semiring=workload)
+            for k in all_kernels:
+                k.launches = before[k.__name__]
+            if (res.chunks_restored, res.chunks_computed,
+                    res.restored_step) != (2, 2, 2) or \
+                    full.chunks_total != 4 or res.corrupt_skipped:
+                raise AssertionError(
+                    f"jobs/{workload}: resumed {res.chunks_restored} chunks "
+                    f"from step {res.restored_step}, computed "
+                    f"{res.chunks_computed}")
+            one = dict(dist=single.dist.cpu().numpy(), sweeps=single.sweeps,
+                       direction_counts=single.direction_counts.numpy(),
+                       sigma=single.sigma.cpu().numpy()
+                       if workload == "counting" else None,
+                       edges_touched=float(single.edges_touched)
+                       if workload != "counting" else 0.0)
+            want = full._asdict()
+            for what, got in (("resumed", res._asdict()),
+                              ("single call", one)):
+                same = got["dist"].dtype == want["dist"].dtype and all(
+                    np.array_equal(got[k], want[k]) if k in (
+                        "dist", "sigma", "direction_counts")
+                    else got[k] == want[k] for k in one)
+                if not same:
+                    raise AssertionError(f"jobs/{workload}: the {what} "
+                                         f"differs from the full run")
+            if workload == "tropical":
+                ok = np.array_equal(full.dist[rows].astype(np.float64),
+                                    want_w)
+            else:
+                ok = np.array_equal(full.dist[rows], want_dist) and (
+                    workload == "boolean" or np.array_equal(
+                        full.sigma[rows].astype(np.float64), want_sigma))
+            if not ok:
+                raise AssertionError(f"jobs/{workload}: rows differ from "
+                                     f"the host's")
+            step = ckpt.latest_step(full_dir)
+            step_dir = Path(full_dir) / f"step_{step:09d}"
+            ckpt_bytes = sum(p.stat().st_size for p in step_dir.iterdir())
+            like = {"dist": full.dist, "sigma": full.sigma
+                    if full.sigma is not None else np.zeros((1, 1),
+                                                            np.float32),
+                    "sweeps": 0, "dir_counts": full.direction_counts,
+                    "edges_touched": 0.0, "chunks_done": 0}
+            t0 = time.perf_counter()
+            state, _ = ckpt.restore(full_dir, step, like)
+            restore_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ckpt.save(tempfile.mkdtemp(dir=root), step, state, keep=1)
+            save_s = time.perf_counter() - t0
+            lines.append(dict(
+                workload=workload, options=opts, sources=len(sources),
+                chunk_size=JOB_CHUNK, chunks_total=full.chunks_total,
+                full_seconds=full_s, resumed_seconds=resume_s,
+                chunks_restored=res.chunks_restored,
+                chunks_computed=res.chunks_computed,
+                restored_step=res.restored_step, sweeps=full.sweeps,
+                direction_counts=full.direction_counts.tolist(),
+                edges_touched=full.edges_touched,
+                checkpoints_written=full.checkpoints_written,
+                checkpoint_bytes=ckpt_bytes,
+                checkpoint_save_seconds=save_s,
+                checkpoint_restore_seconds=restore_s,
+                kept_steps=ckpt.all_steps(full_dir),
+                launches=per_run, rows_checked=int(len(check))))
+            del h, full, res, single, one, want, got, state
+            for d in Path(root).iterdir():
+                shutil.rmtree(d)
+            torch.cuda.empty_cache()
+        # the async snapshot of a CUDA leaf completes before save returns
+        leaf = torch.arange(1 << 24, dtype=torch.float32, device="cuda")
+        want = leaf.cpu().numpy().copy()
+        t0 = time.perf_counter()
+        t = ckpt.save(root, 1, {"x": leaf}, blocking=False)
+        submit_s = time.perf_counter() - t0
+        leaf.fill_(-1.0)
+        t.join()
+        got, _ = ckpt.restore(root, 1, {"x": leaf})
+        if not np.array_equal(got["x"], want):
+            raise AssertionError("jobs: a CUDA leaf overwritten after an "
+                                 "async save restored torn")
+        lines.append(dict(workload="snapshot", leaf_bytes=int(want.nbytes),
+                          submit_seconds=submit_s, restored_equal=True))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return lines
 
 
 def main() -> int:
@@ -1470,6 +2088,41 @@ def main() -> int:
         if got[name] < 1:
             raise AssertionError(f"{name} never launched on the dynamic "
                                  f"path")
+
+    # -- the serving tier: GraphService over rmat16 (K1 and K9 flushes) ----
+    g = graphs["rmat16"]
+    emit(phase="serve_kernels", graph="rmat16",
+         **serve_kernel_check(torch, repro_torch, g, lanes_of["rmat16"],
+                              serve_stream(g.n_nodes, SERVE_QUERIES,
+                                           SEED + 10, (0.6, 0.2, 0.2))[0]
+                              [:SERVE_BATCH]))
+    for mod in (bovm, counting, tropical):
+        mod.reset_launches()
+    before = [0] * len(all_kernels)
+    for fields in serve_run(torch, repro_torch, all_kernels, g,
+                            lanes_of["rmat16"]):
+        emit(phase="serve", graph="rmat16", nvidia_smi=smi, **fields)
+    got = path_launches("serve", before)
+    emit(phase="serve_path", launches=got)
+    for name in ("packed_push_sweep", "sparse_relax_sweep"):
+        if got[name] < 1:
+            raise AssertionError(f"{name} never launched on the serving "
+                                 f"path")
+    torch.cuda.empty_cache()
+
+    # -- resumable jobs: checkpointed apsp, killed and resumed (K1, K5, K9)
+    for mod in (bovm, counting, tropical):
+        mod.reset_launches()
+    before = [0] * len(all_kernels)
+    for fields in jobs_run(torch, repro_torch, all_kernels, g,
+                           lanes_of["rmat16"], srcs["rmat16"][:JOB_SOURCES]):
+        emit(phase="jobs", graph="rmat16", nvidia_smi=smi, **fields)
+    got = path_launches("jobs", before)
+    emit(phase="jobs_path", launches=got)
+    for name in ("packed_push_sweep", "fused_counting_sweep",
+                 "sparse_relax_sweep"):
+        if got[name] < 1:
+            raise AssertionError(f"{name} never launched on the jobs path")
 
     # launches of the comparisons above do not count: report those of the
     # paths' runs

@@ -10,28 +10,45 @@ The port of the ``repro`` JAX package.  The caller-facing surface is the
     row = h.sssp(0)
     res = h.apsp(sources)
     inc = h.incremental(sources)     # DynamicCSRGraph: streaming repair
+    job = h.apsp(sources, checkpoint_dir="ckpt")   # resumable chunked job
+    svc = h.serve(n_landmarks=16)    # tiered GraphService
+
+The serving tier (``repro_torch.serve``: row cache, landmark oracle,
+bucketed micro-batching) answers ``GraphQuery`` requests:
+
+    svc.submit(GraphQuery(qid=0, source=3, target=7))
+    svc.tick()                       # or svc.flush()
+    done = svc.drain_completed()
 
 Everything runs on the card unless the caller passes ``device="cpu"``.
 """
 from .api import DawnGraph, SEMIRING_NAMES, prepare
 from .core.incremental import (IncrementalSSSP, IncrementalState,
                                RepairResult, repair, sssp_state)
+from .core.jobs import JobMismatchError, JobResult, run_sweep_job
 from .core.options import SweepOptions
 from .graph.csr import CSRGraph
 from .graph.dynamic import DynamicCSRGraph
+from .serve import DistanceOracle, GraphQuery, GraphService
 
 __version__ = "0.1.0"
 
 __all__ = [
     "CSRGraph",
     "DawnGraph",
+    "DistanceOracle",
     "DynamicCSRGraph",
+    "GraphQuery",
+    "GraphService",
     "IncrementalSSSP",
     "IncrementalState",
+    "JobMismatchError",
+    "JobResult",
     "RepairResult",
     "SEMIRING_NAMES",
     "SweepOptions",
     "prepare",
     "repair",
+    "run_sweep_job",
     "sssp_state",
 ]

@@ -7,6 +7,8 @@
     res = h.apsp(sources)                   # batched engine result
     h = dawn.prepare(graph, weights=w)      # lane weights: tropical
     res = h.apsp(sources, semiring="tropical")
+    job = h.apsp(sources, checkpoint_dir=d) # resumable chunked job
+    svc = h.serve(n_landmarks=16)           # tiered GraphService
 
     h = dawn.prepare(dyn)                   # DynamicCSRGraph
     h.insert_edges([u], [v])                # mutation passthrough
@@ -19,9 +21,9 @@ the CPU was not asked for.  The handle is epoch-aware: on a
 :class:`DynamicCSRGraph` the prepared operands (and the kernels' indexes
 built from them) are dropped and rebuilt whenever the graph's content
 epoch has moved.  The boolean, counting and tropical semirings,
-centrality and incremental repair are ported; the other routes of
-``repro.api`` raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+centrality, incremental repair, the serving tier and resumable jobs are
+ported; ``mesh=`` and ``tune`` raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -35,27 +37,20 @@ from .core.centrality import counting_apsp as _counting_apsp
 from .core.engine import EngineConfig, PreparedGraph, prepare_graph
 from .core.engine import apsp_engine as _apsp_engine
 from .core.incremental import IncrementalSSSP
+from .core.jobs import run_sweep_job
 from .core.options import SweepOptions
 from .core.weighted import (PreparedWeightedGraph, WeightedConfig,
                             prepare_weighted)
 from .core.weighted import weighted_apsp as _weighted_apsp
-from .graph.csr import CSRGraph, resolve_device
+from .graph.csr import CSRGraph, resolve_device, same_device
 from .graph.dynamic import DynamicCSRGraph
+from .serve.engine import GraphService
 
 SEMIRING_NAMES = ("boolean", "tropical", "counting")
 
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to repro_torch yet")
-
-
-def _same_device(a: torch.device, b: torch.device) -> bool:
-    """``cuda`` and ``cuda:0`` are one device when the current one is 0."""
-    def index(d):
-        if d.index is None and d.type == "cuda":
-            return torch.cuda.current_device()
-        return d.index
-    return a.type == b.type and index(a) == index(b)
 
 
 class DawnGraph:
@@ -71,7 +66,7 @@ class DawnGraph:
                 "weights= with a DynamicCSRGraph is ambiguous — build the "
                 "dynamic graph with weights instead")
         self.device = resolve_device(device)
-        if isinstance(graph, DynamicCSRGraph) and not _same_device(
+        if isinstance(graph, DynamicCSRGraph) and not same_device(
                 graph.device, self.device):
             # its views, and the repair state of incremental(), lie on
             # the dynamic graph's own device
@@ -154,20 +149,38 @@ class DawnGraph:
 
     def apsp(self, sources: Optional[Sequence[int]] = None, *,
              semiring: str = "boolean", mesh=None,
-             checkpoint_dir: Optional[str] = None, on_chunk=None):
+             checkpoint_dir: Optional[str] = None,
+             checkpoint_interval: int = 1,
+             chunk_size: Optional[int] = None, resume: bool = True,
+             on_chunk=None):
         """Batched multi-source shortest paths (default: all sources) ->
         :class:`repro_torch.core.engine.ApspResult` (boolean),
         :class:`repro_torch.core.weighted.WeightedApspResult` (tropical:
         f32 distances, +inf unreachable) or
         :class:`repro_torch.core.centrality.CountingResult` (counting:
-        levels plus exact shortest-path counts)."""
+        levels plus exact shortest-path counts).
+
+        ``checkpoint_dir=`` (or ``on_chunk=``) routes through the
+        resumable-job layer (:func:`repro_torch.core.jobs.run_sweep_job`)
+        on the handle's device: the run is chunked into ``chunk_size``
+        source tiles, checkpointed every ``checkpoint_interval`` chunks,
+        and a rerun of the same call resumes from the newest intact
+        checkpoint (``resume=False`` starts over).  Returns a
+        :class:`repro_torch.core.jobs.JobResult` (host arrays plus the
+        resume counters)."""
         self._check_semiring(semiring)
         if mesh is not None:
             raise _not_ported("mesh= (the sharded executor, ROADMAP Queue "
                               "1 item 11)")
         if checkpoint_dir is not None or on_chunk is not None:
-            raise _not_ported("checkpoint_dir= / on_chunk= (resumable "
-                              "jobs, ROADMAP Queue 1 item 10)")
+            return run_sweep_job(
+                self.graph, sources, workload=semiring,
+                weights=self._lane_weights()
+                if semiring == "tropical" else None,
+                options=self.options, chunk_size=chunk_size,
+                checkpoint_dir=checkpoint_dir,
+                checkpoint_interval=checkpoint_interval, resume=resume,
+                on_chunk=on_chunk, device=self.device)
         if semiring == "tropical":
             return _weighted_apsp(self.prepared_weighted(), sources=sources,
                                   config=self.options.to(WeightedConfig,
@@ -206,8 +219,18 @@ class DawnGraph:
                 lenient=True)
         return IncrementalSSSP(g, sources, config=config)
 
-    def serve(self, *args, **kwargs):
-        raise _not_ported("the serving tier (ROADMAP Queue 1 item 9)")
+    def serve(self, *, mesh=None, **kwargs) -> GraphService:
+        """A tiered :class:`repro_torch.serve.GraphService` over the
+        source graph on the handle's device (epoch-guarded when the graph
+        is dynamic).  ``config`` defaults from the handle's options and
+        ``weights`` from the handle; other keywords pass through
+        (``n_landmarks=``, ``max_batch=``, ``clock=``, ...)."""
+        kwargs.setdefault("config",
+                          self.options.to(EngineConfig, lenient=True))
+        if self._weights is not None:
+            kwargs.setdefault("weights", self._weights)
+        return GraphService(self.graph, mesh=mesh, device=self.device,
+                            **kwargs)
 
     def tune(self, *args, **kwargs):
         raise _not_ported("the roofline autotuner (ROADMAP Queue 1 "

@@ -1,7 +1,8 @@
 """The port's engine core: frontier packing, options, the sweep layer,
 the batched boolean APSP engine, the single-source drivers and BFS
 baselines, connected components, the counting engine with centrality,
-the tropical (weighted) engine and incremental repair."""
+the tropical (weighted) engine, incremental repair and resumable sweep
+jobs."""
 from .bfs import bfs_level_sync_torch, bfs_queue_numpy, bfs_scipy
 from .bovm import DawnState, bovm_msbfs, bovm_sssp, bovm_sweep
 from .centrality import (COUNTING_FORM_NAMES, MEASURES, CentralityConfig,
@@ -18,6 +19,7 @@ from .frontier import (UNREACHED, WORD, one_hot_frontier, pack_bits,
                        packed_width, popcount, unpack_bits)
 from .incremental import (IncrementalSSSP, IncrementalState, RepairResult,
                           repair, sssp_state)
+from .jobs import WORKLOADS, JobMismatchError, JobResult, run_sweep_job
 from .options import SweepOptions
 from .sovm import (SovmState, reconstruct_path, sovm_msbfs, sovm_sssp,
                    sovm_sweep)

@@ -87,6 +87,24 @@ class PreparedGraph:
     epoch: int = 0        # content epoch of the source graph (0 = static)
     # per-graph sweep-cost measurements, keyed (s, bn, bk, pull_chunk, path)
     cost_cache: dict = dataclasses.field(default_factory=dict, repr=False)
+    # landmark label tables of the distance-oracle serving tier
+    # (serve/oracle.py builds them on the device with apsp_engine and
+    # keeps them here, on the host, so every oracle over this prepared
+    # graph shares one build):
+    #   landmarks          (L,) int32 sorted vertex ids
+    #   landmark_dist      (L, n) int32 forward rows d(landmark -> v)
+    #   landmark_dist_rev  (L, n) int32 reverse rows d(v -> landmark)
+    #                      (the same array as landmark_dist when the
+    #                      graph is symmetric)
+    #   landmark_key       build fingerprint (k, strategy)
+    landmarks: Optional[np.ndarray] = dataclasses.field(default=None,
+                                                        repr=False)
+    landmark_dist: Optional[np.ndarray] = dataclasses.field(default=None,
+                                                            repr=False)
+    landmark_dist_rev: Optional[np.ndarray] = dataclasses.field(
+        default=None, repr=False)
+    landmark_key: Optional[tuple] = dataclasses.field(default=None,
+                                                      repr=False)
     _adj: Optional[torch.Tensor] = dataclasses.field(default=None,
                                                      repr=False)
     _adj_pull: Optional[torch.Tensor] = dataclasses.field(default=None,

@@ -1,6 +1,11 @@
-from .csr import CSRGraph, DegreeStats, resolve_device, symmetrize
+from .csr import (CSRGraph, DegreeStats, resolve_device, same_device,
+                  symmetrize)
 from .dynamic import DynamicCSRGraph
-from . import generators
+from .landmarks import (STRATEGIES, degree_landmarks, farthest_point_fill,
+                        select_landmarks)
+from . import generators, landmarks
 
 __all__ = ["CSRGraph", "DegreeStats", "DynamicCSRGraph", "generators",
-           "resolve_device", "symmetrize"]
+           "landmarks", "resolve_device", "same_device", "symmetrize",
+           "STRATEGIES", "degree_landmarks", "farthest_point_fill",
+           "select_landmarks"]

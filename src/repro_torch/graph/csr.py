@@ -32,6 +32,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """``cuda`` and ``cuda:0`` are one device when the current one is 0."""
+    def index(d):
+        if d.index is None and d.type == "cuda":
+            return torch.cuda.current_device()
+        return d.index
+    return a.type == b.type and index(a) == index(b)
+
+
 def _round_up(x: int, mult: int) -> int:
     return ((x + mult - 1) // mult) * mult
 

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card against their plain versions, and
 the boolean, counting and tropical engines' kernel paths and incremental
-repair (K9 resuming each repair) on the card against the CPU.  Needs an
-NVIDIA GPU and nvcc; without CUDA every test here skips.
+repair (K9 resuming each repair), the serving tier (K1 and K9 flushes)
+and a checkpointed job killed and resumed, on the card against the CPU.
+Needs an NVIDIA GPU and nvcc; without CUDA every test here skips.
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -943,3 +944,131 @@ def test_dynamic_graph_on_another_device_is_refused(cuda):
     h = repro_torch.prepare(DynamicCSRGraph(g.to("cuda:0")), device=cuda)
     inc = h.incremental([0, 9])
     assert inc.dist.is_cuda and h.prepared().adj_pull.is_cuda
+
+
+def _serve_stream(n, seed, weighted):
+    """Point-to-point, k-nearest and full-row queries from a hot pool
+    (weighted: point-to-point and full rows)."""
+    from repro_torch.serve import GraphQuery
+    rng = np.random.default_rng(seed)
+    pool = rng.choice(n, 24, replace=False)
+    out = []
+    for i in range(160):
+        s, kind = int(rng.choice(pool)), int(rng.integers(0, 3))
+        if kind == 0:
+            out.append(GraphQuery(qid=i, source=s, weighted=weighted,
+                                  target=int(rng.integers(0, n))))
+        elif kind == 1 and not weighted:
+            out.append(GraphQuery(qid=i, source=s, k_nearest=5))
+        else:
+            out.append(GraphQuery(qid=i, source=s, weighted=weighted))
+    return out
+
+
+def _serve_all(svc, queries):
+    for q in queries:
+        svc.submit(q)
+        while svc.tick():
+            pass
+    while svc.pending():
+        svc.flush()
+    return svc.drain_completed()
+
+
+def _same_answers(got, want):
+    assert [q.qid for q in got] == [q.qid for q in want]
+    for a, b in zip(got, want):
+        assert (a.served_by, a.hops, a.cost, a.nearest) == \
+            (b.served_by, b.hops, b.cost, b.nearest)
+        assert (a.dist is None) == (b.dist is None)
+        if a.dist is not None:
+            assert a.dist.dtype == b.dist.dtype
+            np.testing.assert_array_equal(a.dist, b.dist)
+
+
+def test_pinned_push_service_on_card_matches_cpu_and_launches_k1(cuda):
+    """A service over a pinned-push handle answers every query as the CPU
+    port does; each of its flushes is a K1 run on the card."""
+    g = gen.rmat(11, 8, directed=False, seed=3, device="cpu")
+    queries = {dev: _serve_stream(g.n_nodes, 7, False)
+               for dev in ("cpu", "cuda")}
+    done = {}
+    for dev in ("cpu", "cuda"):
+        h = repro_torch.prepare(g.to(dev), mode="push", use_kernel=True,
+                                device=dev)
+        svc = h.serve(max_batch=16, n_landmarks=4, row_cache_size=8)
+        before = bovm.packed_push_sweep.launches
+        done[dev] = _serve_all(svc, queries[dev])
+        launched = bovm.packed_push_sweep.launches - before
+        if dev == "cuda":
+            assert launched > 0 and svc.prepared.device.type == "cuda"
+        else:
+            assert launched == 0
+    _same_answers(done["cuda"], done["cpu"])
+    assert any(q.served_by == "sweep" for q in done["cuda"])
+
+
+def test_weighted_service_flush_on_card_launches_k9(cuda):
+    g = gen.rmat(11, 8, directed=False, seed=4, device="cpu")
+    w = (np.random.default_rng(4).integers(4, 33, g.m_pad) / 8) \
+        .astype(np.float32)
+    done = {}
+    for dev in ("cpu", "cuda"):
+        h = repro_torch.prepare(g.to(dev), weights=w, device=dev,
+                                mode="sparse", use_kernel=True)
+        svc = h.serve(max_batch=16, row_cache_size=4)
+        before = tropical.sparse_relax_sweep.launches
+        done[dev] = _serve_all(svc, _serve_stream(g.n_nodes, 9, True))
+        if dev == "cuda":
+            assert tropical.sparse_relax_sweep.launches > before
+    _same_answers(done["cuda"], done["cpu"])
+    assert done["cuda"][0].dist is None or \
+        done["cuda"][0].dist.dtype == np.float32
+
+
+def test_checkpointed_tropical_job_resumes_on_card(cuda, tmp_path):
+    """A tropical job (K9 in every chunk) killed after its second chunk
+    and resumed on the card equals the uninterrupted run and the CPU run
+    bit for bit; a CUDA leaf saved with blocking=False and overwritten at
+    once restores at its submitted bytes."""
+    from repro_torch.core.jobs import run_sweep_job
+    from repro_torch.core.options import SweepOptions
+    from repro_torch.train import checkpoint as C
+
+    g = gen.rmat(11, 8, directed=False, seed=5, device="cpu")
+    w = (np.random.default_rng(5).integers(4, 33, g.m_pad) / 8) \
+        .astype(np.float32)
+    srcs = np.arange(0, 2048, 16)
+    opts = SweepOptions(source_batch=32, mode="sparse", use_kernel=True)
+    kw = dict(workload="tropical", weights=w, options=opts, chunk_size=32)
+
+    class Kill(RuntimeError):
+        pass
+
+    def kill(k):
+        if k == 1:
+            raise Kill
+
+    before = tropical.sparse_relax_sweep.launches
+    full = run_sweep_job(g.to(cuda), srcs, device=cuda, **kw)
+    assert tropical.sparse_relax_sweep.launches > before
+    with pytest.raises(Kill):
+        run_sweep_job(g, srcs, device=cuda, checkpoint_dir=str(tmp_path),
+                      on_chunk=kill, **kw)
+    res = run_sweep_job(g, srcs, device=cuda, checkpoint_dir=str(tmp_path),
+                        **kw)
+    cpu = run_sweep_job(g, srcs, device="cpu", **kw)
+    assert (res.chunks_restored, res.chunks_computed, res.restored_step) \
+        == (2, 2, 2)
+    for r in (res, cpu):
+        np.testing.assert_array_equal(r.dist, full.dist)
+        assert (r.sweeps, r.edges_touched) == (full.sweeps, full.edges_touched)
+        np.testing.assert_array_equal(r.direction_counts,
+                                      full.direction_counts)
+    leaf = torch.arange(1 << 20, dtype=torch.float32, device=cuda)
+    want = leaf.cpu().numpy().copy()
+    t = C.save(str(tmp_path / "torn"), 1, {"x": leaf}, blocking=False)
+    leaf.fill_(-1.0)
+    t.join()
+    got, _ = C.restore(str(tmp_path / "torn"), 1, {"x": leaf})
+    np.testing.assert_array_equal(got["x"], want)
