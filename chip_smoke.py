@@ -15,8 +15,10 @@ scipy's BFS, path counts against a float64 count on the host,
 betweenness against a float64 Brandes on the host, weighted distances
 against scipy's Dijkstra and a float32 Bellman-Ford replay on the host,
 and holds every kernel bit-identical to its plain PyTorch version at
-full width: on rmat16 after 2 sweeps, and K1-K3 and K9 also on grid256's
-thin frontier after 200 sweeps, where most of their launches run; the
+full width: on rmat16 after 2 sweeps, and K1-K3 and K7-K9 also on
+grid256's thin frontier after 200 sweeps, where most of their launches
+run (K8 there 4 sweeps per launch: its plain version reads the whole
+float32 operand every sweep); the
 four index builders, the live-word indexes that K1 / K2, K5 / K6 and
 K7 / K8 read (``packed_live_words`` on both graphs' packed operands,
 ``nonzero_words``, ``finite_words`` on the rmat16 operands) and K9's
@@ -71,8 +73,20 @@ full run, a run killed after its second chunk and its resumed run, all
 bit-identical to one ``apsp`` call, 16 rows held to the host; and one
 CUDA leaf saved with ``blocking=False`` and overwritten at once.  Each
 job run must launch its workload's kernel; the plain call is a
-comparison and its launches are taken back out.  The launch counts are
-set to 0 before each of these two paths and read after.
+comparison and its launches are taken back out.  Last, the roofline
+autotuner (phase ``tune``): on each graph ``prepare(g,
+weights=w).tune(save=path)`` twice (the same checksum, op-count costs for
+every semiring, each finite and positive; the fingerprint, unit costs,
+tiles, fused gate, build seconds and peak memory printed), the saved plan
+loaded back equal and a copy for another device refused, then the tuned
+default runs through ``prepare(g, tuning=path, weights=w)``, twice each:
+boolean and tropical on both graphs, counting and ``centrality`` on 128
+sources on rmat16; each bit-identical to the untuned default run above
+(centrality's float measures to the centrality phase's rtol), with equal
+``direction_counts``, printed beside the untuned default and fused
+seconds.  The tuned runs fuse: the phase must launch K3, K6 and K8.  The
+launch counts are set to 0 before each of these three paths and read
+after.
 Each kernel line carries its launches on every path
 (``launches_by_path``) and their sum (``launches``).
 One JSON line per phase; the last line is
@@ -114,6 +128,8 @@ N_CHECK = 16                 # sources checked against scipy per graph
 N_CENTRALITY = 128           # sources of the centrality run
 GRID_STEPS = 200             # sweeps before grid256's thin kernel state
 GRID_RUN = 32                # sweeps per multi-sweep launch on that state
+GRID_WRUN = 4                # K8's on the weighted one (its plain version
+                             # reads the whole f32 operand every sweep)
 EXACT_F32 = 2 ** 24          # float32 counts are exact integers below this
 DYN_ROUNDS = 6               # update rounds of the dynamic phase
 DYN_PER_ROUND = 6            # random pairs a round inserts (both ways)
@@ -182,6 +198,17 @@ def tally(by_graph, graph, kernels, before):
         by_graph.setdefault(name, {}).setdefault(graph, 0)
         by_graph[name][graph] += c
     return got
+
+
+def launch_counts(kernels) -> dict:
+    return {k.__name__: k.launches for k in kernels}
+
+
+def launched_since(kernels, before) -> dict:
+    """Each kernel's launches since ``before`` (a ``launch_counts``), the
+    kernels that launched only."""
+    return {k: v - before[k] for k, v in launch_counts(kernels).items()
+            if v != before[k]}
 
 
 def nvidia_smi() -> str:
@@ -927,11 +954,10 @@ def jobs_run(torch, repro_torch, all_kernels, g, lanes, sources):
     from repro_torch.train import checkpoint as ckpt
 
     def counts():
-        return {k.__name__: k.launches for k in all_kernels}
+        return launch_counts(all_kernels)
 
     def launched(before):
-        return {k: v - before[k] for k, v in counts().items()
-                if v != before[k]}
+        return launched_since(all_kernels, before)
 
     class Preempt(RuntimeError):
         pass
@@ -1074,6 +1100,184 @@ def jobs_run(torch, repro_torch, all_kernels, g, lanes, sources):
     return lines
 
 
+def tune_run(torch, repro_torch, all_kernels, graphs, lanes_of, srcs,
+             untuned, seconds_of, cent_base):
+    """The roofline autotuner on the card: per graph, ``h.tune(save=...)``
+    on ``prepare(g, weights=lanes)`` twice (the same checksum, op-count
+    costs for every semiring, finite and positive), the saved plan loaded
+    back (equal; a copy for another device refused unless
+    ``allow_mismatch=True``), then the tuned default runs through
+    ``prepare(g, tuning=path, weights=lanes)`` twice each — boolean,
+    counting (rmat16 only: grid256's counts overflow float32) and
+    tropical, and on rmat16 ``centrality`` on ``N_CENTRALITY`` sources —
+    held bit for bit to the untuned default runs of the earlier phases
+    (``untuned``: host dist, sigma, sweeps; ``cent_base``: the centrality
+    result, its float measures to their rtol), with equal
+    ``direction_counts`` across the two runs.  Yields one line of fields
+    per plan and per tuned run."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.core import autotune
+
+    def counts():
+        return launch_counts(all_kernels)
+
+    def launched(before):
+        return launched_since(all_kernels, before)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    try:
+        for name, g in graphs.items():
+            lanes = lanes_of[name]
+            path = str(Path(root) / f"{name}.json")
+            plans, build_s, peaks = [], [], []
+            for _ in range(2):
+                h = repro_torch.prepare(g, weights=lanes)
+                h.prepared()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                plans.append(h.tune(save=path))
+                torch.cuda.synchronize()
+                build_s.append(time.perf_counter() - t0)
+                peaks.append(torch.cuda.max_memory_allocated())
+                del h
+                torch.cuda.empty_cache()
+            plan = plans[0]
+            if plans[1] != plan or plans[1].checksum() != plan.checksum():
+                raise AssertionError(f"tune/{name}: two builds differ")
+            if plan.source != "ops" or not all(
+                    plan.covers(sr) for sr in autotune.FORM_VOCAB):
+                raise AssertionError(f"tune/{name}: source {plan.source!r}, "
+                                     f"not every semiring priced")
+            if not all(np.isfinite(c) and c > 0
+                       for _, _, c in plan.unit_costs):
+                raise AssertionError(f"tune/{name}: a unit cost is not "
+                                     f"finite and positive")
+            loaded = repro_torch.TuningPlan.load(path, device="cuda")
+            if loaded != plan:
+                raise AssertionError(f"tune/{name}: the loaded plan differs")
+            alien_path = str(Path(root) / f"{name}-alien.json")
+            alien = dataclasses.replace(plan, backend="cuda:another card")
+            alien.save(alien_path)
+            try:
+                repro_torch.TuningPlan.load(alien_path, device="cuda")
+                raise AssertionError(f"tune/{name}: a plan for another "
+                                     f"device loaded")
+            except ValueError:
+                pass
+            if repro_torch.TuningPlan.load(alien_path, allow_mismatch=True,
+                                           device="cuda") != alien:
+                raise AssertionError(f"tune/{name}: allow_mismatch load")
+            st = plan.graph
+            relative = {sr: {f: plan.unit_cost(sr, f)
+                             / plan.unit_cost(sr, vocab[0])
+                             for f in vocab}
+                        for sr, vocab in autotune.FORM_VOCAB.items()}
+            yield dict(
+                what="plan", graph=name, fingerprint=plan.backend,
+                source=plan.source, checksum=plan.checksum(),
+                unit_costs=[list(u) for u in plan.unit_costs],
+                relative_costs=relative,
+                pinned={sr: autotune.FORM_VOCAB[sr][plan.pinned_direction(
+                    sr, s=128, n_pad=st.n_pad, m_pad=st.m_pad)]
+                    for sr in autotune.FORM_VOCAB},
+                bs=plan.bs, bn=plan.bn, bk=plan.bk,
+                fused_steps=plan.fused_steps, vmem_budget=plan.vmem_budget,
+                build_seconds=build_s, peak_memory_bytes=peaks,
+                loaded_equal=True, foreign_refused=True)
+
+            semirings = ("boolean", "counting", "tropical") \
+                if name == "rmat16" else ("boolean", "tropical")
+            for semiring in semirings:
+                dist0, sigma0, sweeps0 = untuned[(semiring, name)]
+                runs, walls, per_run = [], [], []
+                for _ in range(2):
+                    h = repro_torch.prepare(g, tuning=path, weights=lanes)
+                    if h.tuning != plan:
+                        raise AssertionError(f"tune/{name}: prepare("
+                                             f"tuning=path) lost the plan")
+                    # operand builds are set-up, as in the earlier phases
+                    if semiring == "tropical":
+                        h.prepared_weighted().wdense_index
+                    elif semiring == "counting":
+                        h.prepared().adj_index
+                    else:
+                        h.prepared().adj_pull
+                    before = counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = h.apsp(srcs[name], semiring=semiring)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                    per_run.append(launched(before))
+                    del h
+                    if not (torch.equal(res.dist.cpu(), dist0)
+                            and res.sweeps == sweeps0
+                            and (sigma0 is None
+                                 or torch.equal(res.sigma.cpu(), sigma0))):
+                        raise AssertionError(
+                            f"tune/{name}/{semiring}: dist, sigma or sweeps "
+                            f"differ from the untuned default run")
+                    runs.append(res.direction_counts.tolist())
+                    del res
+                    torch.cuda.empty_cache()
+                if runs[0] != runs[1]:
+                    raise AssertionError(f"tune/{name}/{semiring}: "
+                                         f"direction_counts differ: {runs}")
+                yield dict(
+                    what="run", graph=name, semiring=semiring,
+                    sources=int(len(srcs[name])), seconds=walls,
+                    untuned_default_seconds=seconds_of.get(
+                        (semiring, name, "default")),
+                    untuned_fused_seconds=seconds_of.get(
+                        (semiring, name, "fused")),
+                    sweeps=sweeps0, direction_counts=runs[0],
+                    launches=per_run, equal_to_untuned_default=True)
+            if name != "rmat16":
+                continue
+            csub = srcs[name][:N_CENTRALITY]
+            walls, per_run = [], []
+            for _ in range(2):
+                h = repro_torch.prepare(g, tuning=path, weights=lanes)
+                h.prepared().adj_index
+                before = counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cent = h.centrality(csub)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                per_run.append(launched(before))
+                del h
+                exact = all(np.array_equal(getattr(cent, k),
+                                           getattr(cent_base, k))
+                            for k in ("closeness", "eccentricity")) and (
+                    cent.radius, cent.diameter, cent.sweeps,
+                    cent.sigma_checksum) == (
+                    cent_base.radius, cent_base.diameter, cent_base.sweeps,
+                    cent_base.sigma_checksum)
+                close = np.allclose(cent.betweenness, cent_base.betweenness,
+                                    rtol=BETWEENNESS_RTOL, atol=0.0) and \
+                    np.allclose(cent.harmonic, cent_base.harmonic,
+                                rtol=HARMONIC_RTOL, atol=0.0)
+                if not (exact and close):
+                    raise AssertionError(f"tune/{name}/centrality: differs "
+                                         f"from the untuned run")
+                torch.cuda.empty_cache()
+            yield dict(
+                what="run", graph=name, semiring="centrality",
+                sources=int(len(csub)), seconds=walls,
+                untuned_default_seconds=seconds_of.get(
+                    ("centrality", name, "default")),
+                untuned_fused_seconds=None, sweeps=cent.sweeps,
+                launches=per_run, equal_to_untuned_default=True,
+                betweenness_rtol=BETWEENNESS_RTOL,
+                harmonic_rtol=HARMONIC_RTOL)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1156,6 +1360,9 @@ def main() -> int:
     bovm.reset_launches()
     by_graph = {}                 # kernel -> graph -> main-path launches
     results = {}
+    # the untuned default runs (host dist, sigma, sweeps) and the default
+    # and fused seconds, which the tune phase holds its tuned runs to
+    untuned, seconds_of = {}, {}
     for name, g in graphs.items():
         check = srcs[name][:: len(srcs[name]) // N_CHECK][:N_CHECK]
         want = scipy_dist(g, check)
@@ -1178,6 +1385,10 @@ def main() -> int:
             if not torch.isfinite(res.edges_touched):
                 raise AssertionError(f"{name}/{run}: edges_touched")
             results[(name, run)] = res
+            seconds_of[("boolean", name, run)] = wall
+            if run == "default":
+                untuned[("boolean", name)] = (res.dist.cpu(), None,
+                                              res.sweeps)
             deg = h.prepared().deg[: g.n_nodes].double()
             touched64 = float(((res.dist >= 0).double() * deg).sum())
             touched = float(res.edges_touched)
@@ -1252,6 +1463,10 @@ def main() -> int:
             raise AssertionError(f"counting/{run}: sigma differs from the "
                                  f"float64 host count")
         cres[run] = res
+        seconds_of[("counting", "rmat16", run)] = wall
+        if run == "default":
+            untuned[("counting", "rmat16")] = (res.dist.cpu(),
+                                               res.sigma.cpu(), res.sweeps)
         got = tally(by_graph, "rmat16", ckernels, before)
         emit(phase="counting", graph="rmat16", run=run, options=opts,
              seconds=wall, sweeps=res.sweeps,
@@ -1287,6 +1502,7 @@ def main() -> int:
     cent = h.centrality(csub)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    seconds_of[("centrality", "rmat16", "default")] = wall
     del h
     hdist, hsigma = host_counts(g, csub)
     want_bc = host_betweenness(g, csub, hdist, hsigma)
@@ -1383,6 +1599,10 @@ def main() -> int:
                 raise AssertionError(f"weighted/{name}/{run}: "
                                      f"edges_touched")
             wres[run] = res
+            seconds_of[("tropical", name, run)] = wall
+            if run == "default":
+                untuned[("tropical", name)] = (res.dist.cpu(), None,
+                                               res.sweeps)
             got = tally(by_graph, name, wkernels, before)
             emit(phase="weighted", graph=name, run=run, options=opts,
                  sources=int(len(wsrcs)), seconds=wall,
@@ -1981,13 +2201,55 @@ def main() -> int:
     lib9g = cuda_ms(torch, lambda: lacc.index_reduce_(0, dst_l, lcand,
                                                       "amin"), 5)
     del lcand, lacc
-    record("sparse_relax_sweep",
-           f"grid256, S={len(gsrc)}, after {GRID_STEPS} sweeps", g9,
-           g9_plain, g9(), g9_plain(), s * n_pad * 10 + l9g, o9g,
-           WORD_OPS_PER_S, 20, lib9g, library_note=lib9_note,
-           device_ms=graph_ms(torch, g9, 20))
+    gw_state = f"grid256, S={len(gsrc)}, after {GRID_STEPS} sweeps"
+    record("sparse_relax_sweep", gw_state, g9, g9_plain, g9(), g9_plain(),
+           s * n_pad * 10 + l9g, o9g, WORD_OPS_PER_S, 20, lib9g,
+           library_note=lib9_note, device_ms=graph_ms(torch, g9, 20))
 
-    del pw2, g2, lw2, f2, d2, ridx2, gsrc
+    # K7 / K8 on the same thin state, where the tuned weighted default
+    # (K8 over the whole fixpoint) runs most of its sweeps
+    wd2 = pw2.wdense
+    widx2 = index_row("finite_words", lambda: tropical.finite_words(wd2),
+                      lambda: TR.finite_words_ref(wd2), wd2, 4, "grid256")
+    rows2 = operand_rows(pw2)
+    fd2 = torch.where(f2 != 0, d2, inf)
+    w_min2 = lw2.min()
+    b7g, o7g, _ = minplus_need(f2, d2, *rows2)
+
+    def g7():
+        return tropical.fused_minplus_sweep(fd2, wd2, d2, w_min2, bs=128,
+                                            bn=128, bk=128, index=widx2)
+
+    def g7_plain():
+        return TR.minplus_sweep_ref(fd2, wd2, d2)
+
+    record("fused_minplus_sweep", gw_state, g7, g7_plain, g7(), g7_plain(),
+           s * n_pad * 13 + b7g, o7g, WORD_OPS_PER_S, 3, None,
+           plain_warm=False,
+           library_note="no single PyTorch call computes a (min,+) product")
+
+    def g8():
+        return tropical.fused_minplus_multisweep(
+            f2, wd2, d2, GRID_STEPS, GRID_WRUN, bs=128,
+            max_sweeps=GRID_WRUN, index=widx2)
+
+    def g8_plain():
+        return TR.fused_minplus_multisweep_ref(f2, wd2, d2, GRID_WRUN)
+
+    f_t, d_t, b8g, o8g = f2, d2, 0.0, 0.0
+    for t in range(GRID_WRUN):
+        nb, no, _ = minplus_need(f_t, d_t, *rows2)
+        b8g, o8g = b8g + nb, o8g + no
+        f_t, d_t = tropical.sparse_relax_sweep(f_t, d_t, g2.src, g2.dst, lw2,
+                                               index=ridx2)
+        if not bool(f_t.any()):
+            break
+    record("fused_minplus_multisweep",
+           f"{gw_state}, {GRID_WRUN} sweeps per launch", g8, g8_plain, g8(),
+           g8_plain(), s * n_pad * 10 + b8g, o8g, WORD_OPS_PER_S, 3, None,
+           plain_warm=False, library_note=MULTI_SWEEP_NOTE)
+
+    del pw2, g2, lw2, f2, d2, ridx2, gsrc, wd2, widx2, fd2, f_t, d_t
     torch.cuda.empty_cache()
     all_kernels = kernels + ckernels + wkernels
     by_path = {k.__name__: {} for k in all_kernels}
@@ -2123,6 +2385,23 @@ def main() -> int:
                  "sparse_relax_sweep"):
         if got[name] < 1:
             raise AssertionError(f"{name} never launched on the jobs path")
+    torch.cuda.empty_cache()
+
+    # -- the roofline autotuner: plans built, saved, loaded; the tuned
+    # default runs fuse (K3, K6, K8) ----------------------------------------
+    for mod in (bovm, counting, tropical):
+        mod.reset_launches()
+    before = [0] * len(all_kernels)
+    for fields in tune_run(torch, repro_torch, all_kernels, graphs,
+                           lanes_of, srcs, untuned, seconds_of, cent):
+        emit(phase="tune", nvidia_smi=smi, **fields)
+    got = path_launches("tune", before)
+    emit(phase="tune_path", launches=got)
+    for name in ("fused_boolean_multisweep", "fused_counting_multisweep",
+                 "fused_minplus_multisweep"):
+        if got[name] < 1:
+            raise AssertionError(f"{name} never launched on the tune path")
+    del untuned
 
     # launches of the comparisons above do not count: report those of the
     # paths' runs

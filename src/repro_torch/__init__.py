@@ -12,6 +12,8 @@ The port of the ``repro`` JAX package.  The caller-facing surface is the
     inc = h.incremental(sources)     # DynamicCSRGraph: streaming repair
     job = h.apsp(sources, checkpoint_dir="ckpt")   # resumable chunked job
     svc = h.serve(n_landmarks=16)    # tiered GraphService
+    plan = h.tune(save="plan.json")  # roofline TuningPlan
+    h = dawn.prepare(graph, tuning="plan.json")   # reproducible auto
 
 The serving tier (``repro_torch.serve``: row cache, landmark oracle,
 bucketed micro-batching) answers ``GraphQuery`` requests:
@@ -25,6 +27,7 @@ Everything runs on the card unless the caller passes ``device="cpu"``.
 from .api import DawnGraph, SEMIRING_NAMES, prepare
 from .core.incremental import (IncrementalSSSP, IncrementalState,
                                RepairResult, repair, sssp_state)
+from .core.autotune import TuningPlan
 from .core.jobs import JobMismatchError, JobResult, run_sweep_job
 from .core.options import SweepOptions
 from .graph.csr import CSRGraph
@@ -47,6 +50,7 @@ __all__ = [
     "RepairResult",
     "SEMIRING_NAMES",
     "SweepOptions",
+    "TuningPlan",
     "prepare",
     "repair",
     "run_sweep_job",

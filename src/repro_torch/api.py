@@ -21,16 +21,20 @@ the CPU was not asked for.  The handle is epoch-aware: on a
 :class:`DynamicCSRGraph` the prepared operands (and the kernels' indexes
 built from them) are dropped and rebuilt whenever the graph's content
 epoch has moved.  The boolean, counting and tropical semirings,
-centrality, incremental repair, the serving tier and resumable jobs are
-ported; ``mesh=`` and ``tune`` raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+centrality, incremental repair, the serving tier, resumable jobs and the
+roofline autotuner (``h.tune()``, ``prepare(g, tuning=plan_or_path)``)
+are ported; ``mesh=`` raises ``NotImplementedError`` naming the ROADMAP
+item that brings it.
 """
 from __future__ import annotations
 
+import dataclasses
+import os
 from typing import Optional, Sequence, Union
 
 import torch
 
+from .core.autotune import TuningPlan, build_plan
 from .core.centrality import MEASURES, CentralityConfig, CentralityResult
 from .core.centrality import centrality as _centrality
 from .core.centrality import counting_apsp as _counting_apsp
@@ -232,9 +236,28 @@ class DawnGraph:
         return GraphService(self.graph, mesh=mesh, device=self.device,
                             **kwargs)
 
-    def tune(self, *args, **kwargs):
-        raise _not_ported("the roofline autotuner (ROADMAP Queue 1 "
-                          "item 12)")
+    # -- autotuning --------------------------------------------------------
+
+    @property
+    def tuning(self) -> Optional[TuningPlan]:
+        """The TuningPlan cached on this handle (None = untuned)."""
+        return self.options.tuning
+
+    def tune(self, *, use_hlo: bool = True, save=None,
+             profile=None) -> TuningPlan:
+        """Build a roofline :class:`TuningPlan` for this graph on the
+        handle's device (with its lane weights, the tropical forms are
+        priced too), cache it on the handle (every later query consults
+        it — tiles, the fused gate, deterministic ``mode="auto"``
+        direction pins), and optionally ``save`` it for reproducible
+        reruns (``prepare(g, tuning="plan.json")``).  ``use_hlo=False``
+        skips the op counts: a static plan."""
+        plan = build_plan(self.prepared(), weights=self._lane_weights(),
+                          profile=profile, use_hlo=use_hlo)
+        if save is not None:
+            plan.save(save)
+        self.options = dataclasses.replace(self.options, tuning=plan)
+        return plan
 
 
 def prepare(graph: Union[CSRGraph, DynamicCSRGraph], *, weights=None,
@@ -249,11 +272,18 @@ def prepare(graph: Union[CSRGraph, DynamicCSRGraph], *, weights=None,
     non-negative values in lane order) for the tropical semiring; a
     dynamic graph carries its own.  ``device=None`` means the card; a
     dynamic graph must lie on that device (``ValueError`` otherwise).
+    ``tuning=`` accepts a :class:`TuningPlan` or the path of a saved one,
+    loaded with the fingerprint check against the handle's device — the
+    reproducibility lock for ``mode="auto"`` runs; build one with
+    :meth:`DawnGraph.tune`.
     """
     if not isinstance(graph, (CSRGraph, DynamicCSRGraph)):
         raise TypeError(f"prepare() takes a CSRGraph or a DynamicCSRGraph, "
                         f"not {type(graph).__name__}")
     if options is not None and opts:
         raise ValueError("pass options= or plain keywords, not both")
+    if isinstance(opts.get("tuning"), (str, os.PathLike)):
+        opts["tuning"] = TuningPlan.load(opts["tuning"],
+                                         device=resolve_device(device))
     return DawnGraph(graph, weights=weights,
                      options=options or SweepOptions(**opts), device=device)

@@ -2,7 +2,10 @@
 the batched boolean APSP engine, the single-source drivers and BFS
 baselines, connected components, the counting engine with centrality,
 the tropical (weighted) engine, incremental repair and resumable sweep
-jobs."""
+jobs, and the roofline autotuner."""
+from .autotune import (BackendProfile, GraphStats, TuningPlan,
+                       backend_profile, build_plan, device_fingerprint,
+                       tune_tiles)
 from .bfs import bfs_level_sync_torch, bfs_queue_numpy, bfs_scipy
 from .bovm import DawnState, bovm_msbfs, bovm_sssp, bovm_sweep
 from .centrality import (COUNTING_FORM_NAMES, MEASURES, CentralityConfig,

@@ -20,7 +20,8 @@ The forward engine (:func:`counting_apsp`) tiles sources through the ONE
 sweep driver in ``core/sweep.py``: push (the f32 counting product — the
 K5 kernel on the kernel path, K6 with fused blocks) or sparse
 (scatter-add), chosen per sweep by the occupancy cost model or pinned by
-per-graph calibration.
+a roofline ``TuningPlan`` (``tuning=``) or, without one, per-graph
+calibration.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from ..graph.csr import CSRGraph
+from . import autotune
 from . import sweep as S
 from .engine import PreparedGraph, _resolve_kernel, frontier_stats, \
     prepare_graph
@@ -177,13 +179,19 @@ def _resolve_counting_direction(pg: PreparedGraph, s: int,
                                 cfg: CentralityConfig,
                                 use_kernel: bool) -> Optional[int]:
     """None -> per-sweep dynamic switch; int -> form fixed per batch.
-    An explicit ``mode=`` wins, then the dynamic switch, then wall-clock
-    calibration."""
+    An explicit ``mode=`` wins, then the dynamic switch, then a
+    TuningPlan's argmin, then wall-clock calibration (see
+    ``engine._resolve_direction``)."""
     if cfg.mode != "auto":
         return COUNTING_FORM_NAMES.index(cfg.mode)
     dynamic = use_kernel if cfg.dynamic is None else cfg.dynamic
     if dynamic:
         return None
+    if cfg.tuning is not None:
+        pinned = cfg.tuning.pinned_direction(
+            "counting", s=s, n_pad=pg.n_pad, m_pad=pg.graph.m_pad)
+        if pinned is not None:
+            return pinned
     return int(np.argmin(measure_counting_costs(pg, s, cfg,
                                                 use_kernel=use_kernel)))
 
@@ -196,6 +204,7 @@ def counting_apsp_blocks(g: Union[CSRGraph, PreparedGraph],
     prepared on the device it lives on."""
     pg = g if isinstance(g, PreparedGraph) else \
         prepare_graph(g, device=g.device)
+    config = autotune.apply(config, semiring="counting", n_pad=pg.n_pad)
     graph = pg.graph
     n = graph.n_nodes
     srcs = np.arange(n, dtype=np.int32) if sources is None else \
@@ -215,7 +224,8 @@ def counting_apsp_blocks(g: Union[CSRGraph, PreparedGraph],
         fused_steps = S.resolve_fused_steps(
             "counting", "push", fused_steps=config.fused_steps,
             max_steps=max_steps, use_kernel=use_kernel, n_pad=pg.n_pad,
-            bs=min(B, 128)) or 0
+            bs=min(B, 128),
+            budget=autotune.fused_budget(config, pg.device)) or 0
         if fused_steps:
             forced = PUSH       # fused blocks pin the push form
     # the dense operand only materializes when push can dispatch, and its

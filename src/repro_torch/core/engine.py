@@ -19,7 +19,9 @@ form per sweep.  Two selection regimes, as in the JAX package:
 
   calibrated (reference path) — one sweep of each form is *measured* on
     the prepared graph and the argmin direction is fixed for the batch
-    (cached per graph).  Wall-clock, so not deterministic.
+    (cached per graph).  Wall-clock, so not deterministic; a
+    :class:`~repro_torch.core.autotune.TuningPlan` (``tuning=``) pins
+    the direction by its roofline argmin instead.
 
 All three forms operate on identical padded state (frontier (S, n_pad)
 int8, dist (S, n_pad) int32).
@@ -35,6 +37,7 @@ import torch
 from ..graph.csr import CSRGraph, resolve_device
 from ..kernels import common as kernel_common
 from ..kernels import registry as kernel_registry
+from . import autotune
 from . import sweep as S
 from .frontier import UNREACHED, one_hot_frontier
 from .options import SweepOptions
@@ -322,13 +325,20 @@ def _resolve_kernel(pg: PreparedGraph, cfg: EngineConfig) -> bool:
 def _resolve_direction(pg: PreparedGraph, s: int, cfg: EngineConfig,
                        use_kernel: bool) -> Optional[int]:
     """None -> per-sweep dynamic switch; int -> direction fixed per batch.
-    An explicit ``mode=`` wins, then the dynamic switch, then wall-clock
-    calibration."""
+    An explicit ``mode=`` wins, then the dynamic switch, then a
+    :class:`~repro_torch.core.autotune.TuningPlan` (deterministic
+    roofline argmin), then wall-clock calibration (the only
+    non-deterministic regime, kept for plan-less runs)."""
     if cfg.mode != "auto":
         return DIRECTION_NAMES.index(cfg.mode)
     dynamic = use_kernel if cfg.dynamic is None else cfg.dynamic
     if dynamic:
         return None
+    if cfg.tuning is not None:
+        pinned = cfg.tuning.pinned_direction(
+            "boolean", s=s, n_pad=pg.n_pad, m_pad=pg.graph.m_pad)
+        if pinned is not None:
+            return pinned
     costs = measure_sweep_costs(pg, s, cfg, use_kernel=use_kernel)
     return int(np.argmin(costs))
 
@@ -343,6 +353,9 @@ def apsp_engine_blocks(
     prepared on the device it lives on."""
     pg = g if isinstance(g, PreparedGraph) else \
         prepare_graph(g, device=g.device)
+    # TuningPlan overlay (no-op without one): tiles clamped to this
+    # graph's padding, fused gate, cost constants
+    config = autotune.apply(config, semiring="boolean", n_pad=pg.n_pad)
     graph = pg.graph
     n = graph.n_nodes
     srcs = np.arange(n, dtype=np.int32) if sources is None else \
@@ -363,7 +376,8 @@ def apsp_engine_blocks(
         fused_steps = S.resolve_fused_steps(
             "boolean", "push", fused_steps=config.fused_steps,
             max_steps=max_steps, use_kernel=use_kernel, n_pad=pg.n_pad,
-            bs=min(B, 128)) or 0
+            bs=min(B, 128),
+            budget=autotune.fused_budget(config, pg.device)) or 0
         if fused_steps:
             forced_dir = PUSH   # fused blocks pin one direction
     # only materialize the O(n_pad^2) operands the resolved direction can

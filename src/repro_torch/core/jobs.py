@@ -23,10 +23,13 @@ chunking) equal to the JAX package's for the same job, and resume
 refuses, with :class:`JobMismatchError`, checkpoints written by a
 different job.
 
-Under ``mode="auto"`` on the reference (CPU) path the per-chunk direction
-choice is wall-clock calibrated, so ``direction_counts`` — and only they
-— are not reproducible across invocations; pin a ``mode`` when they must
-survive a resume.
+Under ``mode="auto"`` on the reference (CPU) path a plan-less run picks
+each chunk's direction by wall clock, so its ``direction_counts`` — and
+only they — are not reproducible across invocations.  Pass ``tuning=``
+(a :class:`~repro_torch.core.autotune.TuningPlan`, which reaches every
+chunk through ``options.to(...)``) to make ``mode="auto"`` reproducible:
+the plan's roofline argmin pins each chunk's direction.  The job
+fingerprint holds no plan, as in the JAX package.
 
 Fault-injection seam: ``on_chunk(k)`` runs after chunk ``k``'s
 checkpoint is submitted; raising from it simulates a kill.

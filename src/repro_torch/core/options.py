@@ -2,14 +2,18 @@
 
 :class:`SweepOptions` holds the fields every engine understands (source
 batching, form selection mode, kernel/dynamic resolution, sweep bound,
-fused blocks, kernel tiles).  Engine configs subclass it and add only
-their own knobs; :meth:`SweepOptions.to` projects a plain options object
-onto an engine config, as the facade in ``repro_torch/api.py`` does.
+fused blocks, kernel tiles, the tuning plan).  Engine configs subclass
+it and add only their own knobs; :meth:`SweepOptions.to` projects a
+plain options object onto an engine config, as the facade in
+``repro_torch/api.py`` does.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, ClassVar, Optional, Tuple
+from typing import TYPE_CHECKING, ClassVar, Optional, Tuple
+
+if TYPE_CHECKING:  # import cycle: autotune builds ON options
+    from .autotune import TuningPlan
 
 __all__ = ["SweepOptions"]
 
@@ -33,18 +37,17 @@ class SweepOptions:
     # kernel tiles (bs adapts to the source batch)
     bn: int = 128
     bk: int = 128
-    # roofline tuning plan: not ported yet (the autotuner is Queue 1
-    # item 12); must stay None
-    tuning: Optional[Any] = None
+    # optional roofline TuningPlan (core/autotune.py): every engine
+    # overlays it via autotune.apply (tiles, fused gate, cost constants)
+    # and, on the calibrated mode="auto" path, pins the direction from
+    # plan.pinned_direction instead of wall-clock timing — the
+    # determinism lock.  Frozen and hashable, like the options.
+    tuning: Optional["TuningPlan"] = None
 
     # subclasses pin the form names they dispatch; () = accept anything
     _mode_names: ClassVar[Tuple[str, ...]] = ()
 
     def __post_init__(self):
-        if self.tuning is not None:
-            raise NotImplementedError(
-                "tuning= needs the roofline autotuner, which is not ported "
-                "yet (ROADMAP Queue 1 item 12)")
         if self._mode_names and self.mode not in ("auto",) + self._mode_names:
             raise ValueError(f"mode {self.mode!r} not in "
                              f"{('auto',) + self._mode_names}")

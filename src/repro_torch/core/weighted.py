@@ -14,8 +14,9 @@ forms (``core/sweep.py::tropical_forms``):
            kernel K9, a gather over each target's in-lanes
 
 — chosen per sweep by the occupancy cost model (dynamic regime) or pinned
-per graph by wall-clock calibration of both forms (reference path), as in
-``core/engine.py``.  Public entry points:
+per graph by a roofline ``TuningPlan`` (``tuning=``; ``core/autotune.py``)
+or, without one, by wall-clock calibration of both forms (reference
+path), as in ``core/engine.py``.  Public entry points:
 
   * ``minplus_sssp``   — single-source (min,+) sweeps through the shared
                          driver (frontier-gated Bellman-Ford);
@@ -23,10 +24,6 @@ per graph by wall-clock calibration of both forms (reference path), as in
                          direction optimizer;
   * ``bucketed_sssp``  — small integer weights via unit-hop expansion
                          through the unweighted sweep machinery.
-
-The JAX package's roofline ``TuningPlan`` (``autotune.apply`` and the
-plan's pinned direction) has no counterpart here: the port's
-:class:`SweepOptions` refuses ``tuning=`` until the autotuner is ported.
 """
 from __future__ import annotations
 
@@ -39,6 +36,7 @@ import torch
 from ..graph.csr import CSRGraph, resolve_device
 from ..kernels import common as kernel_common
 from ..kernels import registry as kernel_registry
+from . import autotune
 from . import sweep as S
 from .engine import _resolve_kernel, frontier_stats
 from .frontier import one_hot_frontier
@@ -323,13 +321,19 @@ def _resolve_weighted_direction(pw: PreparedWeightedGraph, s: int,
                                 cfg: WeightedConfig,
                                 use_kernel: bool) -> Optional[int]:
     """None -> per-sweep dynamic switch; int -> form fixed per batch.
-    An explicit ``mode=`` wins, then the dynamic switch, then wall-clock
-    calibration."""
+    An explicit ``mode=`` wins, then the dynamic switch, then a
+    TuningPlan's argmin, then wall-clock calibration (see
+    ``engine._resolve_direction``)."""
     if cfg.mode != "auto":
         return WEIGHTED_FORM_NAMES.index(cfg.mode)
     dynamic = use_kernel if cfg.dynamic is None else cfg.dynamic
     if dynamic:
         return None
+    if cfg.tuning is not None:
+        pinned = cfg.tuning.pinned_direction(
+            "tropical", s=s, n_pad=pw.n_pad, m_pad=pw.graph.m_pad)
+        if pinned is not None:
+            return pinned
     return int(np.argmin(measure_weighted_costs(pw, s, cfg,
                                                 use_kernel=use_kernel)))
 
@@ -348,6 +352,7 @@ def weighted_apsp(g: Union[CSRGraph, PreparedWeightedGraph],
     """
     pw = g if isinstance(g, PreparedWeightedGraph) else \
         prepare_weighted(g, weights, device=g.device)
+    config = autotune.apply(config, semiring="tropical", n_pad=pw.n_pad)
     graph = pw.graph
     n = graph.n_nodes
     srcs = np.arange(n, dtype=np.int32) if sources is None else \
@@ -367,7 +372,8 @@ def weighted_apsp(g: Union[CSRGraph, PreparedWeightedGraph],
         fused_steps = S.resolve_fused_steps(
             "tropical", "dense", fused_steps=config.fused_steps,
             max_steps=max_sweeps, use_kernel=use_kernel, n_pad=pw.n_pad,
-            bs=min(B, 128)) or 0
+            bs=min(B, 128),
+            budget=autotune.fused_budget(config, pw.device)) or 0
         if fused_steps:
             forced = DENSE      # fused blocks pin the dense form
     # only materialize the O(n_pad^2) dense operand when it can dispatch,

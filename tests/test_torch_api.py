@@ -119,22 +119,24 @@ def test_unported_routes_raise(graphs):
     h = repro_torch.prepare(tg, device="cpu")
     with pytest.raises(ValueError, match="unknown semiring"):
         h.apsp([0], semiring="min_label")
-    # serving (item 9) and resumable jobs (item 10) are ported; on a mesh
-    # they wait for the sharded executor (item 11)
+    # serving (item 9), resumable jobs (item 10) and the autotuner (item
+    # 12) are ported; on a mesh they wait for the sharded executor (item 11)
     calls = [
         ("item 11", lambda: h.apsp([0], mesh=object())),
         ("item 11", lambda: h.apsp([0], checkpoint_dir="ckpt",
                                    mesh=object())),
         ("item 11", lambda: h.serve(mesh=object())),
-        ("item 12", h.tune),
     ]
     for item, call in calls:
         with pytest.raises(NotImplementedError, match=item):
             call()
     with pytest.raises(NotImplementedError, match="item 11"):
         h.centrality([0], mesh=object())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        repro_torch.prepare(tg, tuning=object(), device="cpu")
+    plan = h.tune(use_hlo=False)
+    assert h.tuning is plan and plan.backend == "cpu:cpu"
+    tuned = repro_torch.prepare(tg, tuning=plan, device="cpu")
+    assert tuned.tuning is plan
+    assert torch.equal(tuned.apsp([0]).dist, h.apsp([0]).dist)
     # incremental repair is ported: it needs a dynamic graph, and prepare
     # takes a CSRGraph or a DynamicCSRGraph and nothing else
     with pytest.raises(TypeError, match="static CSRGraph"):

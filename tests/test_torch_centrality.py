@@ -22,6 +22,7 @@ from oracles import (brandes_betweenness, closeness_centrality,
 from repro.graph import generators as jgen
 from repro.graph.csr import CSRGraph as JCSR
 from repro_torch.convert import csr_from_arrays
+from repro_torch.core import autotune
 from repro_torch.graph import generators as tgen
 
 jcent = importlib.import_module("repro.core.centrality")
@@ -180,8 +181,9 @@ def test_centrality_validation_errors():
         tcent.centrality(tg, [0], mesh=object())
     with pytest.raises(NotImplementedError, match="item 11"):
         tcent.betweenness(tg, [0], mesh=object())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tcent.CentralityConfig(tuning=object())
+    # the autotuner is ported: a config takes a plan
+    plan = autotune.build_plan(tg, use_hlo=False)
+    assert tcent.CentralityConfig(tuning=plan).tuning is plan
     with pytest.raises(ValueError, match="mode"):
         tcent.CentralityConfig(mode="pull")
     with pytest.raises(ValueError, match="method"):

@@ -1072,3 +1072,41 @@ def test_checkpointed_tropical_job_resumes_on_card(cuda, tmp_path):
     t.join()
     got, _ = C.restore(str(tmp_path / "torn"), 1, {"x": leaf})
     np.testing.assert_array_equal(got["x"], want)
+
+
+def test_tune_on_card_counts_ops_and_keeps_results(cuda, tmp_path):
+    """``tune()`` on the card builds an op-count plan (the same unit costs
+    as on the CPU: the plain forms dispatch the same ops on both) whose
+    fused gate is open; the tuned default runs launch K3, K6 and K8 and
+    equal the untuned ones bit for bit."""
+    from repro_torch.core import autotune
+
+    g = gen.rmat(10, 8, directed=False, seed=7, device="cpu")
+    w = (np.random.default_rng(7).integers(4, 33, g.m_pad) / 8) \
+        .astype(np.float32)
+    h = repro_torch.prepare(g.to(cuda), weights=w)
+    path = tmp_path / "plan.json"
+    plan = h.tune(save=path)
+    assert plan.source == "ops" and plan.fused_steps == -1
+    assert plan.backend == autotune.device_fingerprint(cuda)
+    assert all(plan.covers(sr) for sr in autotune.FORM_VOCAB)
+    prof = autotune.backend_profile(plan.backend)
+    cpu_plan = autotune.build_plan(
+        repro_torch.prepare(g, weights=w, device="cpu").prepared(),
+        weights=w, profile=prof)
+    assert cpu_plan.unit_costs == plan.unit_costs
+    assert autotune.TuningPlan.load(path) == plan
+    srcs = np.arange(0, g.n_nodes, 9)
+    base = repro_torch.prepare(g.to(cuda), weights=w)
+    tuned = repro_torch.prepare(g.to(cuda), weights=w, tuning=str(path))
+    for semiring, kern in (("boolean", bovm.fused_boolean_multisweep),
+                           ("counting", counting.fused_counting_multisweep),
+                           ("tropical", tropical.fused_minplus_multisweep)):
+        want = base.apsp(srcs, semiring=semiring)
+        before = kern.launches
+        got = tuned.apsp(srcs, semiring=semiring)
+        assert kern.launches > before, semiring
+        assert torch.equal(got.dist, want.dist) and \
+            got.sweeps == want.sweeps, semiring
+        if semiring == "counting":
+            assert torch.equal(got.sigma, want.sigma)

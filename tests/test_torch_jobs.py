@@ -7,9 +7,12 @@ resume, a kill inside the interval, a corrupt checkpoint, a different
 job, a finished job, the facade, a mutated dynamic graph) on the port;
 and the hard fields of ``bench_resume --quick``.
 
-A form is pinned in every run (``mode=``): the default CPU regime picks
+A form is pinned in most runs (``mode=``): the default CPU regime picks
 the direction by wall clock, so its ``direction_counts`` are not
-reproducible across invocations.  Everything is compared exactly.
+reproducible across invocations.  Under a ``TuningPlan`` (``tuning=``)
+``mode="auto"`` is reproducible: those runs, and a kill and resume across
+the packages, are compared with their ``direction_counts``.  Everything
+is compared exactly.
 """
 import filecmp
 import json
@@ -23,6 +26,7 @@ import pytest
 import torch
 
 from benchmarks.bench_resume import _kill_after as bench_kill_after
+from repro.core.autotune import build_plan as jbuild_plan
 from repro.core.jobs import run_sweep_job as jrun
 from repro.core.options import SweepOptions as JSweepOptions
 from repro.graph import generators as jgen
@@ -30,6 +34,7 @@ from repro.graph.csr import CSRGraph as JCSRGraph
 from repro.graph.dynamic import DynamicCSRGraph as JDynamic
 import repro_torch
 from repro_torch.convert import csr_from_arrays
+from repro_torch.core.autotune import TuningPlan
 from repro_torch.core.centrality import CentralityConfig, counting_apsp
 from repro_torch.core.engine import EngineConfig, apsp_engine
 from repro_torch.core.jobs import (JobMismatchError, JobResult,
@@ -175,6 +180,66 @@ def test_manifests_and_bytes_match_jax_and_resume_across(workload):
             assert res.chunks_computed == 2
             np.testing.assert_array_equal(np.asarray(res.dist),
                                           full_t.dist)
+
+
+# -- mode="auto" under a plan (tests/test_jobs.py's options) ----------------
+
+# one static plan, built by the JAX package, serves every family: the
+# direction pin uses per-call (s, n_pad, m_pad) and tiles clamp per graph
+J_PLAN = jbuild_plan(GRAPHS["random_ragged"][0], use_hlo=False)
+AUTO = SweepOptions(source_batch=8, mode="auto",
+                    tuning=TuningPlan.from_dict(J_PLAN.to_dict()))
+J_AUTO = JSweepOptions(source_batch=8, mode="auto", tuning=J_PLAN)
+
+
+@pytest.mark.parametrize("workload", ["boolean", "tropical", "counting"])
+def test_auto_job_with_plan_matches_jax(workload):
+    """Every field, direction_counts included, equal to the JAX package's
+    run under the same plan, and to the port's own second run."""
+    for name, (jg, tg) in GRAPHS.items():
+        w = _weights(jg, workload)
+        srcs = np.arange(min(20, jg.n_nodes), dtype=np.int32)[::-1]
+        kw = dict(workload=workload, weights=w, chunk_size=6)
+        want = jrun(jg, srcs, options=J_AUTO, **kw)
+        got = run_sweep_job(tg, srcs, options=AUTO, device="cpu", **kw)
+        again = run_sweep_job(tg, srcs, options=AUTO, device="cpu", **kw)
+        _assert_equal(got, want)
+        _assert_equal(again, got)
+        assert got.direction_counts.sum() > 0, name
+
+
+@pytest.mark.parametrize("workload", ["boolean", "tropical", "counting"])
+def test_auto_job_with_plan_resumes_across_packages(workload):
+    """A run killed by one package and resumed by the other equals the
+    uninterrupted run, direction_counts included."""
+    jg, tg = GRAPHS["random_ragged"]
+    w = _weights(jg, workload)
+    srcs = np.arange(32, dtype=np.int32)
+    kw = dict(workload=workload, weights=w, chunk_size=8)
+    full = jrun(jg, srcs, options=J_AUTO, **kw)
+    port = {"graph": tg, "options": AUTO, "device": "cpu"}
+    jax_ = {"graph": jg, "options": J_AUTO}
+    with tempfile.TemporaryDirectory() as d:
+        for (first, fa), (second, sa) in (((jrun, jax_),
+                                           (run_sweep_job, port)),
+                                          ((run_sweep_job, port),
+                                           (jrun, jax_))):
+            kd = os.path.join(d, first.__module__)
+            fa, sa = dict(fa), dict(sa)
+            with pytest.raises(_Preempt):
+                first(fa.pop("graph"), srcs, checkpoint_dir=kd,
+                      on_chunk=_kill_after(1), **kw, **fa)
+            res = second(sa.pop("graph"), srcs, checkpoint_dir=kd, **kw,
+                         **sa)
+            assert res.chunks_restored == 2 and res.chunks_computed == 2
+            np.testing.assert_array_equal(np.asarray(res.dist), full.dist)
+            if full.sigma is not None:
+                np.testing.assert_array_equal(np.asarray(res.sigma),
+                                              full.sigma)
+            np.testing.assert_array_equal(np.asarray(res.direction_counts),
+                                          full.direction_counts)
+            assert res.sweeps == full.sweeps
+            assert res.edges_touched == full.edges_touched
 
 
 # -- the fault-injection cases ---------------------------------------------
