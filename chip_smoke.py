@@ -84,9 +84,27 @@ boolean and tropical on both graphs, counting and ``centrality`` on 128
 sources on rmat16; each bit-identical to the untuned default run above
 (centrality's float measures to the centrality phase's rtol), with equal
 ``direction_counts``, printed beside the untuned default and fused
-seconds.  The tuned runs fuse: the phase must launch K3, K6 and K8.  The
-launch counts are set to 0 before each of these three paths and read
-after.
+seconds.  The tuned runs fuse: the phase must launch K3, K6 and K8.
+Last, the sharded executor (phase ``sharded``) at world size 1: NCCL
+started inside the script, a (1, 1) ``(data, model)`` mesh from
+``make_mesh``; ``sharded_apsp`` on rmat16's 1,024 sources boolean dense
+(K1), dense fused (K3), sparse and auto, counting dense (K5), tropical
+dense (K7) and sparse (K9), and on grid256's 128 sources boolean dense
+and tropical sparse, each held bit for bit to a single-device call of
+the same pinned form (whose launches are taken back out) and to the
+untuned default run, rows to scipy, its kernel launched and no index
+built after ``prepare_sharded`` (the handle's dense operand handed over,
+no second copy); then ``apsp(mesh=)`` per semiring and
+``centrality(mesh=)`` on 128 sources, a ``GraphService(mesh=)`` on 512
+queries of stream A's recipe, and a job killed after its second chunk and
+resumed on ``mesh_from_plan(plan_remesh(1, model_parallel=1))``.  Phase
+``sharded_blocks`` holds what ranks of a vertex-sharded mesh run: K1,
+K5, K7 and K9 on C = 2 K-row blocks (and parts of the lanes) of rmat16
+after 2 sweeps from all 1,024 sources (a (1, 2) rank's rows, eight
+128-row tiles), each with its block's index, bit for bit to its plain
+version, and the blocks' OR / SUM / MIN to the full operand's call
+(comparisons: their launches do not count).  The launch counts are set
+to 0 before each of these four paths and read after.
 Each kernel line carries its launches on every path
 (``launches_by_path``) and their sum (``launches``).
 One JSON line per phase; the last line is
@@ -153,6 +171,10 @@ SERVE_ANALYTICS = 64         # analytics queries after stream C
 SERVE_EPOCH = 256            # queries on each side of the mutation
 JOB_SOURCES = 512            # sources of the jobs phase
 JOB_CHUNK = 128              # its chunk size
+SHARDED_QUERIES = 512        # serving queries of the sharded phase
+SHARDED_THRESHOLD = 16       # its flushes of at least this many: the mesh
+SHARDED_BLOCK_ROWS = 1024    # source rows of the K-row block check: the
+                             # whole shard of a (1, 2) mesh's rank
 # float32 running sum of degrees over <= ~1,000 per-sweep partial sums,
 # each a tree reduction of < 2^24-exact terms: relative error stays
 # below (1,000 + 24) * 2^-24 ~ 6.1e-5
@@ -1278,6 +1300,448 @@ def tune_run(torch, repro_torch, all_kernels, graphs, lanes_of, srcs,
         shutil.rmtree(root, ignore_errors=True)
 
 
+def sharded_run(torch, repro_torch, all_kernels, graphs, lanes_of, srcs,
+                untuned, seconds_of, cent_base, mesh):
+    """The sharded executor at world size 1 (NCCL, a (1, 1) ``(data,
+    model)`` mesh).  Each run pairs one single-device engine call of the
+    same pinned form (a fresh handle, its operand built first) with
+    ``sharded_apsp`` on operands from ``prepare_sharded`` (the handle's
+    dense operand handed over through ``dense_op=``, so no second copy is
+    held): rmat16 on 1,024 sources boolean dense (K1), dense with
+    ``fused_steps=-1`` (K3), sparse and auto, counting dense (K5),
+    tropical dense (K7) and sparse (K9); grid256 on 128 sources boolean
+    dense and tropical sparse.  Each is held bit for bit to the
+    single-device call (``dist``, ``sweeps``, ``sigma``, and the pinned
+    ``direction_counts``) and to the untuned default run of the earlier
+    phases, and to scipy on sampled rows; its kernel must launch after
+    ``prepare_sharded`` and no index builder may.  The single-device
+    calls are comparisons: their launches are taken back out.  Then the
+    wired routes on short runs: the facade's ``apsp(mesh=)`` per semiring
+    and ``centrality(mesh=)`` on 128 sources, a ``GraphService(mesh=)`` on
+    512 queries of stream A's recipe (``sharded_threshold=16``), and a
+    512-source job killed after its second chunk and resumed on
+    ``mesh_from_plan(plan_remesh(1, model_parallel=1))``.  Yields one
+    line of fields per run."""
+    import shutil
+    import tempfile
+    from repro_torch.core.distributed import (ShardedConfig,
+                                              prepare_sharded, sharded_apsp)
+    from repro_torch.launch.mesh import mesh_from_plan
+    from repro_torch.serve import select_top_k
+    from repro_torch.train.fault_tolerance import plan_remesh
+
+    index_builders = ("packed_live_words", "nonzero_words", "finite_words",
+                      "in_lanes")
+
+    def counts():
+        return launch_counts(all_kernels)
+
+    def untake(before):
+        """A comparison's launches do not count."""
+        for k in all_kernels:
+            k.launches = before[k.__name__]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def host_rows(name, semiring, check):
+        g = graphs[name]
+        if semiring == "tropical":
+            return scipy_dijkstra(g, lanes_of[name], check), None
+        if semiring == "counting":
+            return host_counts(g, check)
+        return scipy_dist(g, check), None
+
+    runs = [
+        ("rmat16", "boolean", dict(mode="dense"), dict(mode="push"),
+         "packed_push_sweep"),
+        ("rmat16", "boolean", dict(mode="dense", fused_steps=-1),
+         dict(mode="push", fused_steps=-1), "fused_boolean_multisweep"),
+        ("rmat16", "boolean", dict(mode="sparse"), dict(mode="sparse"),
+         None),
+        ("rmat16", "boolean", dict(mode="auto"), None, None),
+        ("rmat16", "counting", dict(mode="dense"), dict(mode="push"),
+         "fused_counting_sweep"),
+        ("rmat16", "tropical", dict(mode="dense"), dict(mode="dense"),
+         "fused_minplus_sweep"),
+        ("rmat16", "tropical", dict(mode="sparse"), dict(mode="sparse"),
+         "sparse_relax_sweep"),
+        ("grid256", "boolean", dict(mode="dense"), dict(mode="push"),
+         "packed_push_sweep"),
+        ("grid256", "tropical", dict(mode="sparse"), dict(mode="sparse"),
+         "sparse_relax_sweep"),
+    ]
+    for name, semiring, opts, single_opts, kernel in runs:
+        g, lanes = graphs[name], lanes_of[name]
+        sources = srcs[name]
+        weights = lanes if semiring == "tropical" else None
+        cfg = ShardedConfig(semiring=semiring, **opts)
+        dist0, sigma0, sweeps0 = untuned[(semiring, name)]
+        single = single_s = None
+        dense_op = None
+        if single_opts is not None:
+            h = repro_torch.prepare(g, weights=weights, **single_opts)
+            # operand and index builds are set-up; prepare_sharded takes
+            # the handle's over
+            if semiring == "tropical":
+                if cfg.need_dense:
+                    h.prepared_weighted().wdense_index
+                    dense_op = h.prepared_weighted()
+                else:
+                    h.prepared_weighted().relax_index
+            elif semiring == "counting":
+                h.prepared().adj_index
+                dense_op = h.prepared()
+            elif cfg.need_dense:
+                h.prepared().adj_pull_index
+                dense_op = h.prepared()
+            before = counts()
+            single, single_s = timed(lambda: h.apsp(sources,
+                                                    semiring=semiring))
+            untake(before)
+            del h
+        before = counts()
+        ops, prepare_s = timed(lambda: prepare_sharded(
+            g, mesh, weights=weights, config=cfg, dense_op=dense_op))
+        prepare_launches = launched_since(all_kernels, before)
+        before = counts()
+        res, sharded_s = timed(lambda: sharded_apsp(ops, sources))
+        got = launched_since(all_kernels, before)
+        if kernel is not None and got.get(kernel, 0) < 1:
+            raise AssertionError(f"sharded/{name}/{semiring}/{opts}: "
+                                 f"{kernel} never launched")
+        if any(got.get(k, 0) for k in index_builders):
+            raise AssertionError(f"sharded/{name}/{semiring}/{opts}: an "
+                                 f"index was built after prepare_sharded: "
+                                 f"{got}")
+        dist_h = res.dist.cpu()
+        same = torch.equal(dist_h, dist0) and res.sweeps == sweeps0 and (
+            sigma0 is None or torch.equal(res.sigma.cpu(), sigma0))
+        if single is not None:
+            same = same and torch.equal(res.dist, single.dist) and \
+                res.sweeps == single.sweeps and (
+                    sigma0 is None or torch.equal(res.sigma, single.sigma))
+            # one batch of every source here, tiles of 128 there: each
+            # ran its pinned form only
+            pinned = [res.sweeps, 0] if cfg.mode == "dense" \
+                else [0, res.sweeps]
+            slot = 0 if cfg.mode == "dense" else \
+                len(single.direction_counts) - 1
+            counts_ = single.direction_counts.tolist()
+            same = same and res.direction_counts.tolist() == pinned and \
+                counts_[slot] == sum(counts_)
+        if not same:
+            raise AssertionError(f"sharded/{name}/{semiring}/{opts}: "
+                                 f"differs from the single-device run")
+        check = sources[:: len(sources) // N_CHECK][:N_CHECK]
+        rows = np.searchsorted(sources, check)
+        want, want_sigma = host_rows(name, semiring, check)
+        got_rows = dist_h[torch.from_numpy(rows)].numpy()
+        ok = np.array_equal(got_rows.astype(want.dtype), want)
+        if want_sigma is not None:
+            ok = ok and np.array_equal(
+                res.sigma.cpu()[torch.from_numpy(rows)].numpy().astype(
+                    np.float64), want_sigma)
+        if not ok:
+            raise AssertionError(f"sharded/{name}/{semiring}/{opts}: rows "
+                                 f"differ from the host's")
+        yield dict(
+            what="run", graph=name, semiring=semiring, options=opts,
+            single_options=single_opts, sources=int(len(sources)),
+            sharded_seconds=sharded_s, single_seconds=single_s,
+            untuned_default_seconds=seconds_of.get(
+                (semiring, name, "default")),
+            prepare_sharded_seconds=prepare_s,
+            prepare_launches=prepare_launches, sweeps=res.sweeps,
+            direction_counts=res.direction_counts.tolist(),
+            edges_touched=float(res.edges_touched), launches=got,
+            single_direction_counts=None if single is None
+            else single.direction_counts.tolist(),
+            dense_op_handed_over=dense_op is not None,
+            equal_to_single=single is not None,
+            equal_to_untuned_default=True, rows_checked=int(len(check)))
+        del ops, res, single, dense_op, dist_h
+        torch.cuda.empty_cache()
+
+    # -- the wired routes -----------------------------------------------
+    name, g = "rmat16", graphs["rmat16"]
+    sub = srcs[name][:N_CENTRALITY]
+    for semiring in ("boolean", "counting", "tropical"):
+        h = repro_torch.prepare(
+            g, weights=lanes_of[name] if semiring == "tropical" else None)
+        before = counts()
+        res, wall = timed(lambda: h.apsp(sub, semiring=semiring, mesh=mesh))
+        got = launched_since(all_kernels, before)
+        dist0, sigma0, _ = untuned[(semiring, name)]
+        if not (torch.equal(res.dist.cpu(), dist0[: len(sub)]) and (
+                sigma0 is None or torch.equal(res.sigma.cpu(),
+                                              sigma0[: len(sub)]))):
+            raise AssertionError(f"sharded/facade/{semiring}: differs from "
+                                 f"the untuned default rows")
+        yield dict(what="facade", graph=name, semiring=semiring,
+                   sources=int(len(sub)), seconds=wall, sweeps=res.sweeps,
+                   direction_counts=res.direction_counts.tolist(),
+                   launches=got, equal_to_untuned_default=True)
+        del h, res
+        torch.cuda.empty_cache()
+
+    h = repro_torch.prepare(g)
+    before = counts()
+    cent, wall = timed(lambda: h.centrality(sub, mesh=mesh))
+    got = launched_since(all_kernels, before)
+    exact = all(np.array_equal(getattr(cent, k), getattr(cent_base, k))
+                for k in ("closeness", "eccentricity")) and (
+        cent.radius, cent.diameter, cent.sweeps, cent.sigma_checksum) == (
+        cent_base.radius, cent_base.diameter, cent_base.sweeps,
+        cent_base.sigma_checksum)
+    close = np.allclose(cent.betweenness, cent_base.betweenness,
+                        rtol=BETWEENNESS_RTOL, atol=0.0) and \
+        np.allclose(cent.harmonic, cent_base.harmonic, rtol=HARMONIC_RTOL,
+                    atol=0.0)
+    if not (exact and close):
+        raise AssertionError("sharded/centrality: differs from the "
+                             "centrality phase")
+    yield dict(what="centrality", graph=name, sources=int(len(sub)),
+               seconds=wall, sweeps=cent.sweeps, launches=got,
+               single_seconds=seconds_of.get(("centrality", name,
+                                              "default")),
+               betweenness_rtol=BETWEENNESS_RTOL, harmonic_rtol=HARMONIC_RTOL)
+    del h, cent
+    torch.cuda.empty_cache()
+
+    # GraphService: stream A's recipe, flushes of >= 16 on the mesh
+    clock = VirtualClock()
+    h = repro_torch.prepare(g, source_batch=SERVE_BATCH)
+    svc = h.serve(max_batch=SERVE_BATCH, n_landmarks=SERVE_LANDMARKS,
+                  row_cache_size=SERVE_POOL, completed_retention=None,
+                  clock=clock, mesh=mesh,
+                  sharded_threshold=SHARDED_THRESHOLD)
+    pool, stream, arrivals = serve_stream(g.n_nodes, SHARDED_QUERIES,
+                                          SEED + 10, (0.6, 0.2, 0.2))
+    acc = {"flush_seconds": 0.0, "flushes": 0}
+    svc.oracle
+    before = counts()
+    t0 = time.perf_counter()
+    done = serve_drive(svc, repro_torch.GraphQuery, stream, arrivals, clock,
+                       acc)
+    wall = time.perf_counter() - t0
+    got = launched_since(all_kernels, before)
+    serve_check("sharded/serve", done, dict(zip(pool.tolist(),
+                                                scipy_dist(g, pool))),
+                select_top_k)
+    if len(done) != SHARDED_QUERIES or svc.sharded_flushes < 1:
+        raise AssertionError(f"sharded/serve: {len(done)} answers, "
+                             f"{svc.sharded_flushes} sharded flushes")
+    yield dict(what="serve", graph=name, queries=len(done), seconds=wall,
+               flushes=acc["flushes"], sharded_flushes=svc.sharded_flushes,
+               flush_seconds=acc["flush_seconds"],
+               served_by={k: sum(q.served_by == k for q in done)
+                          for k in ("cache", "oracle", "sweep", "sharded")},
+               launches=got)
+    del h, svc, done
+    torch.cuda.empty_cache()
+
+    # a job on the mesh, killed after chunk 2, resumed on the plan's mesh
+    class Preempt(RuntimeError):
+        pass
+
+    def kill(k):
+        if k == 1:
+            raise Preempt(f"injected preemption after chunk {k}")
+
+    jsrc = srcs[name][:JOB_SOURCES]
+    root = tempfile.mkdtemp(prefix="chip_smoke_sharded_job_")
+    try:
+        full_dir, kill_dir = (tempfile.mkdtemp(dir=root) for _ in range(2))
+        h = repro_torch.prepare(g, mode="dense")
+        kw = dict(semiring="boolean", chunk_size=JOB_CHUNK)
+        before = counts()
+        full, full_s = timed(lambda: h.apsp(jsrc, mesh=mesh,
+                                            checkpoint_dir=full_dir, **kw))
+        try:
+            h.apsp(jsrc, mesh=mesh, checkpoint_dir=kill_dir, on_chunk=kill,
+                   **kw)
+            raise AssertionError("sharded/job: the kill did not fire")
+        except Preempt:
+            pass
+        small = mesh_from_plan(plan_remesh(1, model_parallel=1))
+        res, resume_s = timed(lambda: h.apsp(jsrc, mesh=small,
+                                             checkpoint_dir=kill_dir, **kw))
+        got = launched_since(all_kernels, before)
+        if got.get("packed_push_sweep", 0) < 1:
+            raise AssertionError("sharded/job: K1 never launched")
+        same = (res.chunks_restored, res.chunks_computed) == (2, 2) and \
+            np.array_equal(res.dist, full.dist) and \
+            np.array_equal(res.dist, untuned[("boolean", name)][0]
+                           [: len(jsrc)].numpy()) and \
+            (res.sweeps, res.edges_touched) == (full.sweeps,
+                                                full.edges_touched) and \
+            np.array_equal(res.direction_counts, full.direction_counts)
+        if not same:
+            raise AssertionError("sharded/job: the resumed run differs")
+        yield dict(what="job", graph=name, workload="boolean",
+                   sources=int(len(jsrc)), chunk_size=JOB_CHUNK,
+                   full_seconds=full_s, resumed_seconds=resume_s,
+                   resumed_mesh=list(small.mesh.shape),
+                   chunks_restored=res.chunks_restored,
+                   chunks_computed=res.chunks_computed, sweeps=res.sweeps,
+                   direction_counts=res.direction_counts.tolist(),
+                   launches=got)
+        del h, full, res
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def sharded_block_check(torch, g, lanes, sources):
+    """The calls that ranks with C = 2 make, in one process: rmat16's
+    operands split into two K-row blocks (``prepare_sharded``'s builder)
+    and its lanes by ``edge_partition_global``, at n_pad = a multiple of
+    256, on the state after 2 sweeps (made by the full operand's kernel
+    from the sources).  K1, K5, K7 and K9 run on each block as a rank
+    runs them: all its source rows in 128-row tiles, with the block's
+    live-word index (K9: the part's in-lane index).  Each is held bit for
+    bit to its plain version, and the blocks' ⊕ (OR of the new bits, SUM
+    of the gated counting partials, MIN) to the full operand's call.
+    Returns one line of fields per kernel."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core.frontier import pack_bits
+    from repro_torch.graph.partition import edge_partition_global
+    from repro_torch.kernels import bovm, counting, tropical
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.bovm import ref as R
+    from repro_torch.kernels.counting import ref as CR
+    from repro_torch.kernels.tropical import ref as TR
+
+    C = 2
+    n, n_pad = g.n_nodes, g.n_padded(128 * C)
+    nk = n_pad // C
+    s = len(sources)
+    step = 3                                  # the sweep after 2 sweeps
+    src = torch.from_numpy(sources.astype(np.int64)).cuda()
+    rows = torch.arange(s, device="cuda")
+    f0 = torch.zeros((s, n_pad), dtype=torch.int8, device="cuda")
+    f0[rows, src] = 1
+    col_ok = torch.arange(n_pad, device="cuda")[None, :] < n
+    wl = torch.from_numpy(lanes).cuda()
+    lines = []
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def block(semiring, c, packed=False):
+        """Rank c's block and its live-word index, as prepare_sharded
+        builds them."""
+        blk = D._dense_block(g, n_pad, c * nk, nk, semiring,
+                             wl if semiring == "tropical" else None, packed)
+        return blk, registry.get(semiring).operand_index(blk)
+
+    def line(name, per_block, combined):
+        if not (all(per_block) and combined):
+            raise AssertionError(f"sharded_blocks/{name}: a block differs "
+                                 f"from its plain version or the blocks' "
+                                 f"combine from the full operand's call")
+        lines.append(dict(kernel=name, blocks=C, n_pad=n_pad, rows=s,
+                          row_tiles=-(-s // bs), step=step,
+                          blocks_equal_plain=True,
+                          combine_equal_full=True))
+
+    # K1: OR of the blocks' new bits
+    full = D._dense_block(g, n_pad, 0, n_pad, "boolean", None, True)
+    wk, bs = 4, min(s, 128)
+    d = torch.where(f0 != 0, 0, -1).to(torch.int32)
+    d = torch.where(col_ok, d, 0).to(torch.int32)
+    f = f0
+    for t in (1, 2):
+        f, d = bovm.packed_push_sweep(pack_bits(f != 0), full, d, t,
+                                      bs=bs, wk=wk)
+    new_full, d_full = bovm.packed_push_sweep(pack_bits(f != 0), full, d,
+                                              step, bs=bs, wk=wk)
+    del full
+    acc, ok = torch.zeros_like(new_full), []
+    for c in range(C):
+        blk, idx = block("boolean", c, True)
+        fp = pack_bits(f[:, c * nk: (c + 1) * nk] != 0)
+        out = bovm.packed_push_sweep(fp, blk, d, step, bs=bs, wk=wk,
+                                     index=idx)
+        ok.append(same(out, R.packed_push_ref(fp, blk, d, step)))
+        acc |= out[0]
+        del blk, idx
+    line("packed_push_sweep", ok, torch.equal(acc, new_full) and
+         torch.equal(torch.where(acc != 0, step, d), d_full))
+
+    # K5: SUM of the gated partials
+    full = D._dense_block(g, n_pad, 0, n_pad, "counting", None, False)
+    d = torch.where(f0 != 0, 0, -1).to(torch.int32)
+    d = torch.where(col_ok, d, 0).to(torch.int32)
+    sg = (f0 != 0).to(torch.float32)
+    f = f0
+    for t in (1, 2):
+        f, d, sg = counting.fused_counting_sweep(
+            torch.where(f != 0, sg, 0.0), full, d, sg, t, bs=bs)
+    fs = torch.where(f != 0, sg, 0.0)
+    new_full, d_full, sg_full = counting.fused_counting_sweep(
+        fs, full, d, sg, step, bs=bs)
+    del full
+    cand, ok = torch.zeros_like(sg), []
+    for c in range(C):
+        blk, idx = block("counting", c)
+        fs_k = fs[:, c * nk: (c + 1) * nk].contiguous()
+        out = counting.fused_counting_sweep(fs_k, blk, d, sg, step, bs=bs,
+                                            index=idx)
+        ok.append(same(out, CR.counting_sweep_ref(fs_k, blk, d, sg, step)))
+        cand += torch.where(out[0] != 0, out[2], 0.0)
+        del blk, idx
+    new = (cand > 0) & (d == -1)
+    line("fused_counting_sweep", ok, torch.equal(new.to(torch.int8), new_full)
+         and torch.equal(torch.where(new, step, d), d_full)
+         and torch.equal(torch.where(new, cand, sg), sg_full))
+
+    # K7 and K9: MIN of the blocks' and of the parts' distances
+    inf = float("inf")
+    d = torch.where(f0 != 0, 0.0, inf).to(torch.float32)
+    f = f0
+    idx = tropical.in_lanes(g.src, g.dst, wl, n_pad)
+    for _ in (1, 2):
+        f, d = tropical.sparse_relax_sweep(f, d, g.src, g.dst, wl,
+                                           index=idx)
+    w_min = wl.min()
+    fd = torch.where(f != 0, d, inf)
+    full = D._dense_block(g, n_pad, 0, n_pad, "tropical", wl, False)
+    new_full, d_full = tropical.fused_minplus_sweep(fd, full, d, w_min,
+                                                    bs=bs)
+    del full
+    torch.cuda.empty_cache()
+    nd, ok = torch.full_like(d, inf), []
+    for c in range(C):
+        blk, bidx = block("tropical", c)
+        fd_k = fd[:, c * nk: (c + 1) * nk].contiguous()
+        out = tropical.fused_minplus_sweep(fd_k, blk, d, w_min, bs=bs,
+                                           index=bidx)
+        ok.append(same(out, TR.minplus_sweep_ref(fd_k, blk, d)))
+        nd = torch.minimum(nd, out[1])
+        del blk, bidx
+        torch.cuda.empty_cache()
+    line("fused_minplus_sweep", ok, torch.equal(nd, d_full) and
+         torch.equal((nd < d).to(torch.int8), new_full))
+    new_full, d_full = tropical.sparse_relax_sweep(f, d, g.src, g.dst, wl,
+                                                   index=idx)
+    parts = edge_partition_global(g, C, weights=wl)
+    nd, ok = torch.full_like(d, inf), []
+    for c in range(C):
+        ps, pd, pw = (parts[k][c].contiguous() for k in ("src", "dst", "w"))
+        out = tropical.sparse_relax_sweep(
+            f, d, ps, pd, pw, index=tropical.in_lanes(ps, pd, pw, n_pad))
+        ok.append(same(out, TR.sparse_relax_ref(f, d, ps, pd, pw)))
+        nd = torch.minimum(nd, out[1])
+    line("sparse_relax_sweep", ok, torch.equal(nd, d_full) and
+         torch.equal((nd < d).to(torch.int8), new_full))
+    return lines
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2401,7 +2865,61 @@ def main() -> int:
                  "fused_minplus_multisweep"):
         if got[name] < 1:
             raise AssertionError(f"{name} never launched on the tune path")
+    torch.cuda.empty_cache()
+
+    # -- the sharded executor at world size 1: NCCL on a (1, 1) mesh (K1,
+    # K3, K5, K7, K9), then the K-row blocks that C = 2 ranks run --------
+    import datetime
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.core.distributed import sharded_apsp
+    from repro_torch.launch.mesh import make_mesh
+    nccl_dir = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    dist.init_process_group(
+        "nccl", init_method=f"file://{nccl_dir}/store", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        # the first collective of each process group builds its NCCL
+        # communicator: set-up, timed apart from the runs
+        t0 = time.perf_counter()
+        sharded_apsp(gen.grid2d(8, 8, device="cuda"), [0], mesh=mesh)
+        torch.cuda.synchronize()
+        emit(phase="sharded_setup",
+             nccl_first_call_seconds=time.perf_counter() - t0)
+        for mod in (bovm, counting, tropical):
+            mod.reset_launches()
+        before = [0] * len(all_kernels)
+        t0 = time.perf_counter()
+        for fields in sharded_run(torch, repro_torch, all_kernels, graphs,
+                                  lanes_of, srcs, untuned, seconds_of, cent,
+                                  mesh):
+            emit(phase="sharded", nvidia_smi=smi, **fields)
+        got = path_launches("sharded", before)
+        emit(phase="sharded_path", launches=got,
+             seconds=time.perf_counter() - t0)
+        for name in ("packed_push_sweep", "fused_boolean_multisweep",
+                     "fused_counting_sweep", "fused_minplus_sweep",
+                     "sparse_relax_sweep"):
+            if got[name] < 1:
+                raise AssertionError(f"{name} never launched on the sharded "
+                                     f"path")
+        # comparisons: their launches do not count
+        counted = launch_counts(all_kernels)
+        t0 = time.perf_counter()
+        for fields in sharded_block_check(
+                torch, graphs["rmat16"], lanes_of["rmat16"],
+                srcs["rmat16"][:SHARDED_BLOCK_ROWS]):
+            emit(phase="sharded_blocks", graph="rmat16", **fields)
+        emit(phase="sharded_blocks_done", seconds=time.perf_counter() - t0)
+        for k in all_kernels:
+            k.launches = counted[k.__name__]
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(nccl_dir, ignore_errors=True)
     del untuned
+    torch.cuda.empty_cache()
 
     # launches of the comparisons above do not count: report those of the
     # paths' runs

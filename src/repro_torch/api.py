@@ -9,6 +9,7 @@
     res = h.apsp(sources, semiring="tropical")
     job = h.apsp(sources, checkpoint_dir=d) # resumable chunked job
     svc = h.serve(n_landmarks=16)           # tiered GraphService
+    res = h.apsp(sources, mesh=mesh)        # the sharded executor
 
     h = dawn.prepare(dyn)                   # DynamicCSRGraph
     h.insert_edges([u], [v])                # mutation passthrough
@@ -20,11 +21,14 @@ pass ``device="cpu"`` for the CPU) and raises when CUDA is missing and
 the CPU was not asked for.  The handle is epoch-aware: on a
 :class:`DynamicCSRGraph` the prepared operands (and the kernels' indexes
 built from them) are dropped and rebuilt whenever the graph's content
-epoch has moved.  The boolean, counting and tropical semirings,
-centrality, incremental repair, the serving tier, resumable jobs and the
-roofline autotuner (``h.tune()``, ``prepare(g, tuning=plan_or_path)``)
-are ported; ``mesh=`` raises ``NotImplementedError`` naming the ROADMAP
-item that brings it.
+epoch has moved.
+
+Every query method takes ``mesh=``: a
+:class:`torch.distributed.device_mesh.DeviceMesh` from
+:func:`repro_torch.launch.mesh.make_mesh` routes the call through the
+sharded executor (:mod:`repro_torch.core.distributed`).  Its contract is
+SPMD: every rank of the mesh makes the same call and gets the whole
+result back.  The mesh's device must be the handle's.
 """
 from __future__ import annotations
 
@@ -38,6 +42,8 @@ from .core.autotune import TuningPlan, build_plan
 from .core.centrality import MEASURES, CentralityConfig, CentralityResult
 from .core.centrality import centrality as _centrality
 from .core.centrality import counting_apsp as _counting_apsp
+from .core.distributed import ShardedConfig, prepare_sharded
+from .core.distributed import sharded_apsp as _sharded_apsp
 from .core.engine import EngineConfig, PreparedGraph, prepare_graph
 from .core.engine import apsp_engine as _apsp_engine
 from .core.incremental import IncrementalSSSP
@@ -48,13 +54,10 @@ from .core.weighted import (PreparedWeightedGraph, WeightedConfig,
 from .core.weighted import weighted_apsp as _weighted_apsp
 from .graph.csr import CSRGraph, resolve_device, same_device
 from .graph.dynamic import DynamicCSRGraph
+from .launch.mesh import check_mesh_device
 from .serve.engine import GraphService
 
 SEMIRING_NAMES = ("boolean", "tropical", "counting")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet")
 
 
 class DawnGraph:
@@ -83,6 +86,9 @@ class DawnGraph:
         self._weights = weights
         self._pg: Optional[PreparedGraph] = None
         self._pw: Optional[PreparedWeightedGraph] = None
+        self._sharded = {}       # semiring -> ShardedOperands
+        self._sharded_mesh = None
+        self._sharded_epoch = -1
 
     # -- epoch-aware operand cache ----------------------------------------
 
@@ -126,6 +132,25 @@ class DawnGraph:
             self._pw = prepare_weighted(self.graph, w, device=self.device)
         return self._pw
 
+    def _sharded_operands(self, semiring: str, mesh):
+        """This rank's :class:`ShardedOperands` for ``semiring`` on
+        ``mesh``, cached on the mesh's identity and the content epoch (a
+        new mesh or epoch drops them; ``tune()`` too)."""
+        if mesh is not self._sharded_mesh or \
+                self._sharded_epoch != self.epoch:
+            self._sharded = {}
+            self._sharded_mesh = mesh
+            self._sharded_epoch = self.epoch
+        if semiring not in self._sharded:
+            check_mesh_device(mesh, self.device)
+            cfg = self.options.to(
+                ShardedConfig, lenient=True, semiring=semiring, mode="dense")
+            g = self.graph.view() if self.mutable else self.graph
+            self._sharded[semiring] = prepare_sharded(
+                g, mesh, weights=self._lane_weights()
+                if semiring == "tropical" else None, config=cfg)
+        return self._sharded[semiring]
+
     # -- mutation passthrough (DynamicCSRGraph only) -----------------------
 
     def _dynamic(self) -> DynamicCSRGraph:
@@ -162,7 +187,9 @@ class DawnGraph:
         :class:`repro_torch.core.weighted.WeightedApspResult` (tropical:
         f32 distances, +inf unreachable) or
         :class:`repro_torch.core.centrality.CountingResult` (counting:
-        levels plus exact shortest-path counts).
+        levels plus exact shortest-path counts), or with ``mesh=`` a
+        :class:`repro_torch.core.distributed.ShardedApspResult` (every
+        rank of the mesh makes the same call).
 
         ``checkpoint_dir=`` (or ``on_chunk=``) routes through the
         resumable-job layer (:func:`repro_torch.core.jobs.run_sweep_job`)
@@ -173,18 +200,19 @@ class DawnGraph:
         :class:`repro_torch.core.jobs.JobResult` (host arrays plus the
         resume counters)."""
         self._check_semiring(semiring)
-        if mesh is not None:
-            raise _not_ported("mesh= (the sharded executor, ROADMAP Queue "
-                              "1 item 11)")
         if checkpoint_dir is not None or on_chunk is not None:
             return run_sweep_job(
                 self.graph, sources, workload=semiring,
                 weights=self._lane_weights()
                 if semiring == "tropical" else None,
-                options=self.options, chunk_size=chunk_size,
+                mesh=mesh, options=self.options, chunk_size=chunk_size,
                 checkpoint_dir=checkpoint_dir,
                 checkpoint_interval=checkpoint_interval, resume=resume,
                 on_chunk=on_chunk, device=self.device)
+        if mesh is not None:
+            # the config is baked into the prepared operands
+            return _sharded_apsp(self._sharded_operands(semiring, mesh),
+                                 sources)
         if semiring == "tropical":
             return _weighted_apsp(self.prepared_weighted(), sources=sources,
                                   config=self.options.to(WeightedConfig,
@@ -257,6 +285,7 @@ class DawnGraph:
         if save is not None:
             plan.save(save)
         self.options = dataclasses.replace(self.options, tuning=plan)
+        self._sharded = {}       # baked configs must pick the plan up
         return plan
 
 

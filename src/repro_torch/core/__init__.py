@@ -2,7 +2,7 @@
 the batched boolean APSP engine, the single-source drivers and BFS
 baselines, connected components, the counting engine with centrality,
 the tropical (weighted) engine, incremental repair and resumable sweep
-jobs, and the roofline autotuner."""
+jobs, the roofline autotuner and the sharded executor."""
 from .autotune import (BackendProfile, GraphStats, TuningPlan,
                        backend_profile, build_plan, device_fingerprint,
                        tune_tiles)
@@ -14,6 +14,9 @@ from .centrality import (COUNTING_FORM_NAMES, MEASURES, CentralityConfig,
                          counting_apsp, counting_apsp_blocks, eccentricity,
                          eccentricity_sample, harmonic,
                          measure_counting_costs)
+from .distributed import (DENSE, MODEL_AXIS, SHARDED_FORM_NAMES, SPARSE,
+                          ShardedApspResult, ShardedConfig, ShardedOperands,
+                          dp_extent, prepare_sharded, sharded_apsp)
 from .engine import (ApspResult, EngineConfig, PreparedGraph, SweepStats,
                      apsp_engine, apsp_engine_blocks, choose_direction,
                      frontier_stats, measure_sweep_costs, prepare_graph,

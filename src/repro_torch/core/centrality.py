@@ -32,8 +32,10 @@ import numpy as np
 import torch
 
 from ..graph.csr import CSRGraph
+from ..launch.mesh import MODEL_AXIS, check_mesh_device, mesh_extent
 from . import autotune
 from . import sweep as S
+from .distributed import ShardedConfig, prepare_sharded, sharded_apsp
 from .engine import PreparedGraph, _resolve_kernel, frontier_stats, \
     prepare_graph
 from .frontier import UNREACHED, one_hot_frontier
@@ -375,16 +377,15 @@ def centrality(g: Union[CSRGraph, PreparedGraph],
     source-sampled betweenness estimator, unscaled).  When betweenness
     is requested the forward pass runs the counting engine; otherwise the
     boolean engine serves the dist rows (``method`` picks its path, as in
-    :func:`repro_torch.core.sssp.multi_source`)."""
+    :func:`repro_torch.core.sssp.multi_source`).  ``mesh=`` runs the
+    forward pass through the sharded executor instead
+    (:mod:`repro_torch.core.distributed`; every rank of the mesh makes
+    the same call and folds the whole result)."""
     measures = tuple(measures)
     unknown = set(measures) - set(MEASURES)
     if unknown:
         raise ValueError(f"unknown measures {sorted(unknown)}; "
                          f"available: {MEASURES}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the sharded executor, ROADMAP Queue 1 item 11) is not "
-            "ported to repro_torch yet")
     pg = g if isinstance(g, PreparedGraph) else \
         prepare_graph(g, device=g.device)
     graph = pg.graph
@@ -428,7 +429,31 @@ def centrality(g: Union[CSRGraph, PreparedGraph],
                            delta[np.arange(len(block)), block])
             bc[:] += bc_local
 
-    if need_sigma:
+    if mesh is not None:
+        check_mesh_device(mesh, pg.device)
+        # honor the caller's form choice: the sharded executor names the
+        # product form "dense" where the counting engine says "push";
+        # "auto" keeps the per-sweep cost-model switch
+        mode = {"push": "dense", "sparse": "sparse",
+                "auto": "auto"}[config.mode]
+        cfg = ShardedConfig(semiring="counting" if need_sigma
+                            else "boolean", mode=mode,
+                            use_kernel=config.use_kernel,
+                            max_sweeps=config.max_steps, bn=config.bn,
+                            bk=config.bk)
+        # without vertex sharding the prepared graph's dense operand is
+        # the block: hand it over instead of building a second copy
+        hand_over = cfg.need_dense and mesh_extent(mesh, MODEL_AXIS) == 1
+        res = sharded_apsp(prepare_sharded(
+            graph, mesh, config=cfg, dense_op=pg if hand_over else None),
+            srcs)
+        sweeps = res.sweeps
+        B = config.source_batch
+        for lo in range(0, len(srcs), B):
+            block = srcs[lo: lo + B]
+            fold(lo, block, res.dist[lo: lo + len(block)],
+                 res.sigma[lo: lo + len(block)] if need_sigma else None)
+    elif need_sigma:
         lo = 0
         for block, dist, sigma, st in counting_apsp_blocks(
                 pg, srcs, config=config):

@@ -13,7 +13,12 @@ bit-identically after a kill:
     computed and recomputed chunks see identical operands;
   * the aggregation is partition-stable: ``sweeps`` is a running max,
     ``direction_counts`` and ``edges_touched`` running sums folded in
-    fixed chunk order.
+    fixed chunk order;
+  * the sharded executor (``mesh=``) is bit-identical to the engines and
+    across mesh shapes, so a job checkpointed on one mesh restores onto a
+    smaller one — the elastic walk is ``plan_remesh`` →
+    :func:`repro_torch.launch.mesh.mesh_from_plan` → ``restore(...,
+    shardings=)`` — and still reproduces the uninterrupted run.
 
 The checkpoint state is a fixed-shape host tree (full-size dist / sigma
 buffers plus scalar counters); each chunk's rows come to the host with
@@ -34,8 +39,10 @@ fingerprint holds no plan, as in the JAX package.
 Fault-injection seam: ``on_chunk(k)`` runs after chunk ``k``'s
 checkpoint is submitted; raising from it simulates a kill.
 
-``mesh=`` (the sharded executor and the elastic restore onto a smaller
-mesh) is ROADMAP Queue 1 item 11 and raises.
+On a mesh every rank runs the same job (the executor's SPMD contract):
+only the mesh's origin rank writes the checkpoints (N ranks renaming into
+one directory would race), every rank reads them, and the job ends with
+a barrier over the mesh once the last write has landed.
 """
 from __future__ import annotations
 
@@ -45,8 +52,11 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import numpy as np
 
 from ..graph.csr import resolve_device
+from ..launch.mesh import check_mesh, check_mesh_device, mesh_device
 from ..train import checkpoint as ckpt
 from .centrality import CentralityConfig, counting_apsp
+from .distributed import (ShardedConfig, is_mesh_leader, mesh_barrier,
+                          prepare_sharded, sharded_apsp)
 from .engine import EngineConfig, apsp_engine, prepare_graph
 from .options import SweepOptions
 from .weighted import WeightedConfig, prepare_weighted, weighted_apsp
@@ -106,11 +116,24 @@ def _job_meta(g, epoch: int, srcs, weights, workload: str,
     }
 
 
-def _chunk_runner(graph, workload: str, weights, options: SweepOptions,
-                  device):
-    """Build the operands on ``device`` once; return (run, n_dirs) where
-    ``run(chunk)`` -> (dist, sigma | None, sweeps, dir_counts,
-    edges_touched), the rows as host arrays (one copy each)."""
+def _chunk_runner(graph, workload: str, weights, mesh,
+                  options: SweepOptions, device):
+    """Build the operands on ``device`` (or this rank's of ``mesh``)
+    once; return (run, n_dirs) where ``run(chunk)`` -> (dist, sigma |
+    None, sweeps, dir_counts, edges_touched), the rows as host arrays
+    (one copy each)."""
+    if mesh is not None:
+        cfg = options.to(ShardedConfig, lenient=True, semiring=workload)
+        ops = prepare_sharded(
+            graph, mesh,
+            weights=weights if workload == "tropical" else None, config=cfg)
+
+        def run(chunk):
+            r = sharded_apsp(ops, chunk)
+            return r.dist.cpu().numpy(), None if r.sigma is None else \
+                r.sigma.cpu().numpy(), r.sweeps, r.direction_counts, \
+                r.edges_touched
+        return run, 2
     if workload == "tropical":
         pw = prepare_weighted(graph, weights, device=device)
         wcfg = options.to(WeightedConfig, lenient=True)
@@ -158,7 +181,7 @@ def _fresh_state(S: int, n: int, workload: str, n_dirs: int) -> dict:
 
 
 def _try_restore(checkpoint_dir: str, like: dict, meta: dict,
-                 verify: bool):
+                 verify: bool, shardings):
     """Newest-first scan: (state, restored_step, corrupt_skipped).
     Damaged checkpoints (bad sha256, unreadable manifest) are counted and
     skipped; a manifest from a DIFFERENT job raises."""
@@ -176,11 +199,14 @@ def _try_restore(checkpoint_dir: str, like: dict, meta: dict,
                 f"different job:\n  found    {got}\n  expected {meta}")
         try:
             tree, _ = ckpt.restore(checkpoint_dir, step, like,
-                                   verify=verify)
+                                   verify=verify, shardings=shardings)
         except (OSError, KeyError, ValueError):
             corrupt += 1
             continue
-        return {k: np.array(v) for k, v in tree.items()}, step, corrupt
+        # back to mutable host buffers (a mesh restore puts the leaves on
+        # this rank's device)
+        return {k: np.array(_host(v)) for k, v in tree.items()}, step, \
+            corrupt
     return None, None, corrupt
 
 
@@ -194,23 +220,27 @@ def run_sweep_job(graph, sources: Optional[Sequence[int]] = None, *,
                   on_chunk: Optional[Callable[[int], None]] = None,
                   device=None) -> JobResult:
     """Run a batched sweep workload as resumable source-tile chunks on
-    ``device`` (``None``: the card).
+    ``device`` (``None``: the card, or this rank's device of ``mesh``).
 
     With ``checkpoint_dir=`` set, progress is checkpointed every
     ``checkpoint_interval`` chunks (async, atomic, sha256-manifested;
     newest ``keep`` retained) plus once after the final chunk, and a rerun
     of the same call resumes from the newest intact checkpoint, with
-    results bit-identical to an uninterrupted run.  ``graph`` is a
+    results bit-identical to an uninterrupted run, also on another mesh
+    than the one that wrote the checkpoint.  ``graph`` is a
     :class:`CSRGraph` or a :class:`DynamicCSRGraph` (its content epoch is
-    part of the job's fingerprint)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_sweep_job(mesh=) needs the sharded executor (ROADMAP Queue "
-            "1 item 11), which is not ported to repro_torch yet")
+    part of the job's fingerprint).  ``mesh=`` runs the chunks through
+    the sharded executor and restores through the current mesh
+    (``restore(shardings=)``, the elastic path)."""
     if workload not in WORKLOADS:
         raise ValueError(f"unknown workload {workload!r}; one of "
                          f"{WORKLOADS}")
-    dev = resolve_device(device)
+    if mesh is not None:
+        check_mesh(mesh)
+        dev = mesh_device(mesh) if device is None else resolve_device(device)
+        check_mesh_device(mesh, dev)
+    else:
+        dev = resolve_device(device)
     epoch = 0
     if hasattr(graph, "view"):        # DynamicCSRGraph duck-type
         epoch = int(graph.epoch)
@@ -230,21 +260,28 @@ def run_sweep_job(graph, sources: Optional[Sequence[int]] = None, *,
         raise ValueError(f"chunk_size must be >= 1: {chunk_size}")
     n_chunks = -(-len(srcs) // chunk_size)
 
-    run, n_dirs = _chunk_runner(graph, workload, weights, options, dev)
+    run, n_dirs = _chunk_runner(graph, workload, weights, mesh, options,
+                                dev)
     state = _fresh_state(len(srcs), n, workload, n_dirs)
     meta = _job_meta(graph, epoch, srcs, weights, workload, chunk_size,
                      options)
     meta["chunks_total"] = n_chunks
 
     hook = None
+    writes = 0                 # checkpoints submitted, on every rank
     restored_step = None
     corrupt = 0
     start = 0
     if checkpoint_dir is not None:
-        hook = ckpt.CheckpointHook(checkpoint_dir, keep=keep)
+        if mesh is None or is_mesh_leader(mesh):
+            hook = ckpt.CheckpointHook(checkpoint_dir, keep=keep)
         if resume:
+            # restoring through the current mesh is the elastic path: the
+            # checkpoint may have been written on another mesh shape
+            shardings = None if mesh is None else \
+                {k: mesh for k in state}
             got, restored_step, corrupt = _try_restore(
-                checkpoint_dir, state, meta, verify)
+                checkpoint_dir, state, meta, verify, shardings)
             if got is not None:
                 state = got
                 start = int(state["chunks_done"])
@@ -267,14 +304,18 @@ def run_sweep_job(graph, sources: Optional[Sequence[int]] = None, *,
                 + np.float32(float(edges)))
             state["chunks_done"] = np.int32(k + 1)
             computed += 1
-            if hook is not None and ((k + 1) % checkpoint_interval == 0
-                                     or k + 1 == n_chunks):
-                hook.submit(k + 1, state, meta=meta)
+            if checkpoint_dir is not None and (
+                    (k + 1) % checkpoint_interval == 0 or k + 1 == n_chunks):
+                if hook is not None:
+                    hook.submit(k + 1, state, meta=meta)
+                writes += 1
             if on_chunk is not None:
                 on_chunk(k)
     finally:
         if hook is not None:
             hook.flush()    # clean shutdown: the last write is durable
+        if mesh is not None and checkpoint_dir is not None:
+            mesh_barrier(mesh)  # ... before any rank reads it
 
     return JobResult(
         dist=state["dist"],
@@ -285,6 +326,6 @@ def run_sweep_job(graph, sources: Optional[Sequence[int]] = None, *,
         chunks_total=n_chunks,
         chunks_computed=computed,
         chunks_restored=start,
-        checkpoints_written=hook.written if hook is not None else 0,
+        checkpoints_written=writes,
         restored_step=restored_step,
         corrupt_skipped=corrupt)

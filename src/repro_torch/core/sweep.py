@@ -128,8 +128,10 @@ def _bump(counts: Tuple[int, ...], idx: int, by: int) -> Tuple[int, ...]:
 def sweep_loop(forms: Sequence[SweepForm], state: SweepState, *,
                max_steps: int, deg: Optional[torch.Tensor] = None,
                choose: Optional[Callable[[SweepState], int]] = None,
-               forced_dir: int = 0, fused: Optional[Callable] = None,
-               fused_steps: int = 0) -> SweepState:
+               forced_dir: int = 0,
+               converged: Optional[Callable[[torch.Tensor], bool]] = None,
+               fused: Optional[Callable] = None, fused_steps: int = 0,
+               fused_combine: Optional[Callable] = None) -> SweepState:
     """THE sweep driver — the only loop over sweeps in repro_torch/core.
 
     forms      : candidate sweep forms; one runs per iteration.
@@ -139,6 +141,10 @@ def sweep_loop(forms: Sequence[SweepForm], state: SweepState, *,
                  f32 running sum (exact below 2^24).
     choose     : ``SweepState -> int`` form index (the per-sweep
                  direction optimizer); ``None`` pins ``forms[forced_dir]``.
+    converged  : Fact-1 test over the new frontier -> bool; default
+                 ``not new.any()``.  The sharded executor passes a
+                 reduction over every rank of its mesh, so that all ranks
+                 stop at the same sweep.
     fused      : optional fused multi-sweep block ``(frontier, dist, step,
                  n_run) -> (new, dist, prod, stopped)`` (``dist`` the
                  loop state's dist slot: a tensor or a pair) built by
@@ -151,6 +157,10 @@ def sweep_loop(forms: Sequence[SweepForm], state: SweepState, *,
                  ``dir_counts`` and the final frontier/dist equal the
                  per-sweep loop's; ``edges_touched`` is not updated.
                  ``choose`` must be None (fusion pins one direction).
+    fused_combine : optional reduction of the block's ``(prod, stopped)``
+                 pair over the sharded executor's ranks (max / all), so
+                 that every rank takes the same accounting — the fused
+                 counterpart of ``converged``.
     """
     forms = tuple(forms)
     st = state
@@ -161,6 +171,8 @@ def sweep_loop(forms: Sequence[SweepForm], state: SweepState, *,
             n_run = min(fused_steps, max_steps - st.step)
             new, dist, prod, stopped = fused(st.frontier, st.dist, st.step,
                                              n_run)
+            if fused_combine is not None:
+                prod, stopped = fused_combine(prod, stopped)
             prod, stopped = int(prod), bool(stopped)
             executed = prod + 1 if stopped else n_run
             st = st._replace(
@@ -172,7 +184,8 @@ def sweep_loop(forms: Sequence[SweepForm], state: SweepState, *,
         step = st.step + 1
         idx = forced_dir if choose is None else int(choose(st))
         new, dist, parent = forms[idx](st.frontier, st.dist, st.parent, step)
-        stop = not bool(new.any())
+        stop = not bool(new.any()) if converged is None \
+            else bool(converged(new))
         touched = st.edges_touched
         if deg is not None:
             touched = touched + torch.sum(

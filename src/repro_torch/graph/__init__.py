@@ -3,9 +3,10 @@ from .csr import (CSRGraph, DegreeStats, resolve_device, same_device,
 from .dynamic import DynamicCSRGraph
 from .landmarks import (STRATEGIES, degree_landmarks, farthest_point_fill,
                         select_landmarks)
-from . import generators, landmarks
+from . import generators, landmarks, partition
 
 __all__ = ["CSRGraph", "DegreeStats", "DynamicCSRGraph", "generators",
-           "landmarks", "resolve_device", "same_device", "symmetrize",
+           "landmarks", "partition", "resolve_device", "same_device",
+           "symmetrize",
            "STRATEGIES", "degree_landmarks", "farthest_point_fill",
            "select_landmarks"]

@@ -24,11 +24,13 @@ point (``submit`` / ``flush`` / ``tick``) first compares the graph's
 content ``epoch`` with the epoch the operands were prepared at; on a
 mismatch the operands are rebuilt from the merged view and every derived
 cache (row cache, betweenness vector, landmark label tables) is dropped,
-so no admission can read a stale cache.
+so no admission can read a stale cache (the sharded operands are
+dropped with them).
 
-``mesh=`` (the sharded executor) is ROADMAP Queue 1 item 11 and raises;
-``sharded_threshold`` is accepted and, as in the JAX package without a
-mesh, does nothing.
+With ``mesh=``, flushes of at least ``sharded_threshold`` queries run
+through the sharded executor (``core/distributed.py``); every rank of
+the mesh drives its own service with the same queries (the executor's
+SPMD contract).
 """
 from __future__ import annotations
 
@@ -42,18 +44,15 @@ import numpy as np
 
 from ..core.centrality import (MEASURES, CentralityConfig, betweenness,
                                centrality)
+from ..core.distributed import (ShardedConfig, ShardedOperands,
+                                prepare_sharded, sharded_apsp)
 from ..core.engine import (EngineConfig, PreparedGraph, apsp_engine_blocks,
                            prepare_graph)
 from ..core.weighted import (PreparedWeightedGraph, WeightedConfig,
                              prepare_weighted, weighted_apsp)
 from ..graph.csr import resolve_device, same_device
+from ..launch.mesh import MODEL_AXIS, check_mesh_device, mesh_extent
 from .oracle import DistanceOracle, select_top_k
-
-
-def _mesh_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} needs the sharded executor (ROADMAP Queue 1 item 11), "
-        f"which is not ported to repro_torch yet")
 
 
 @dataclasses.dataclass
@@ -80,8 +79,8 @@ class GraphQuery:
     ``expired=True`` (``served_by="expired"``, no result).
 
     ``served_by`` records the tier ("cache" / "oracle" / "sweep" /
-    "expired"); ``certified`` is True when the answer was proven exact
-    without a sweep.
+    "sharded" / "expired"); ``certified`` is True when the answer was
+    proven exact without a sweep.
     """
     qid: int
     source: int
@@ -124,6 +123,14 @@ class GraphService:
     a dynamic graph must lie on that device.  Completed queries land in
     ``completed`` (the most recent ``completed_retention``); consume them
     with :meth:`drain_completed`.  ``clock`` injects the time source.
+
+    Pass ``mesh`` (on the service's device) to scale flushes past one
+    device: micro-batches of at least ``sharded_threshold`` queries run
+    through the sharded executor (``sharded_config`` /
+    ``sharded_weighted_config``, dense by default), bit-identical to the
+    single-device engines; smaller flushes stay on the single-device
+    path.  The whole-graph betweenness runs on the mesh too when the graph
+    has at least ``sharded_threshold`` nodes.
     """
 
     def __init__(self, graph, *,
@@ -133,8 +140,8 @@ class GraphService:
                  max_batch: int = 32,
                  mesh=None,
                  sharded_threshold: int = 16,
-                 sharded_config=None,
-                 sharded_weighted_config=None,
+                 sharded_config: Optional[ShardedConfig] = None,
+                 sharded_weighted_config: Optional[ShardedConfig] = None,
                  centrality_config: Optional[CentralityConfig] = None,
                  n_landmarks: int = 0,
                  landmark_strategy: str = "mixed",
@@ -145,10 +152,6 @@ class GraphService:
                  deadline_safety: float = 2.0,
                  clock: Callable[[], float] = time.monotonic,
                  device=None):
-        if mesh is not None:
-            raise _mesh_not_ported("GraphService(mesh=)")
-        if sharded_config is not None or sharded_weighted_config is not None:
-            raise _mesh_not_ported("GraphService(sharded_config=)")
         batch = max(8, ((max_batch + 7) // 8) * 8)
         if batch > 128:  # EngineConfig: above one push tile, multiple of 128
             batch = ((batch + 127) // 128) * 128
@@ -168,21 +171,31 @@ class GraphService:
                 f"the DynamicCSRGraph lies on {graph.device}, the service "
                 f"on {self.device}: build it from a graph on the service's "
                 f"device")
+        if mesh is not None:
+            check_mesh_device(mesh, self.device)
         self.graph_source = graph
         self._base_weights = weights
+        self._sharded_ops: Dict[str, ShardedOperands] = {}
         self._build_operands()
         self.weighted_config = weighted_config or \
             WeightedConfig(source_batch=min(self.config.source_batch, 128),
                            use_kernel=self.config.use_kernel)
-        self.mesh = None
-        # inert without a mesh, as in the JAX package
+        self.mesh = mesh
         self.sharded_threshold = max(1, sharded_threshold)
         self.sharded_flushes = 0
+        self._sharded_cfg = {
+            "boolean": sharded_config or
+            ShardedConfig(semiring="boolean", mode="dense",
+                          use_kernel=self.config.use_kernel),
+            "tropical": sharded_weighted_config or
+            ShardedConfig(semiring="tropical", mode="dense",
+                          use_kernel=self.config.use_kernel),
+        }
         self.centrality_config = centrality_config or CentralityConfig(
             source_batch=min(self.config.source_batch, 128),
             use_kernel=self.config.use_kernel)
-        # betweenness is a whole-graph analytic: computed once, then
-        # served from this cache
+        # betweenness is a whole-graph analytic: computed once (on the
+        # mesh when there is one), then served from this cache
         self._betweenness: Optional[np.ndarray] = None
         # --- serving tier ----------------------------------------------
         self._clock = clock
@@ -227,6 +240,7 @@ class GraphService:
         g = self.graph_source
         self.prepared: Optional[PreparedGraph] = None   # drop stale first
         self.prepared_weighted: Optional[PreparedWeightedGraph] = None
+        self._sharded_ops.clear()
         self.prepared = prepare_graph(g, device=self.device)
         if self._base_weights is not None or getattr(g, "weighted", False):
             self.prepared_weighted = prepare_weighted(
@@ -243,9 +257,10 @@ class GraphService:
 
     def _ensure_fresh(self) -> None:
         """Invalidate every cached artifact when the graph has mutated:
-        re-prepare the operands, clear the row cache and the betweenness
-        vector, and drop the oracle (its label tables rebuild lazily on
-        next touch).  A no-op for static graphs (always epoch 0)."""
+        re-prepare the operands (the sharded ones too), clear the row
+        cache and the betweenness vector, and drop the oracle (its label
+        tables rebuild lazily on next touch).  A no-op for static graphs
+        (always epoch 0)."""
         if int(getattr(self.graph_source, "epoch", 0)) == \
                 self.prepared.epoch:
             return
@@ -254,6 +269,28 @@ class GraphService:
         self._betweenness = None
         self._oracle = None
         self.epoch_invalidations += 1
+
+    def _sharded_operands(self, semiring: str) -> ShardedOperands:
+        """This rank's per-semiring operands, built once and reused by
+        every sharded flush.  On a mesh without vertex sharding the padded
+        size is the single-device one, so the prepared dense operand is
+        handed over instead of a second copy."""
+        if semiring not in self._sharded_ops:
+            cfg = self._sharded_cfg[semiring]
+            dense_op = None
+            if cfg.need_dense and mesh_extent(self.mesh, MODEL_AXIS) == 1:
+                dense_op = self.prepared_weighted if semiring == "tropical" \
+                    else self.prepared
+            self._sharded_ops[semiring] = prepare_sharded(
+                self.prepared.graph, self.mesh,
+                weights=self.prepared_weighted.w_edges
+                if semiring == "tropical" else None,
+                config=cfg, dense_op=dense_op)
+        return self._sharded_ops[semiring]
+
+    def _route_sharded(self, n_queries: int) -> bool:
+        return self.mesh is not None and \
+            n_queries >= self.sharded_threshold
 
     # -- admission ---------------------------------------------------------
 
@@ -460,22 +497,36 @@ class GraphService:
         weighted = [q for q in live if q.weighted]
         if unweighted:
             sources = np.asarray([q.source for q in unweighted], np.int32)
-            (_, dist, _), = apsp_engine_blocks(self.prepared, sources,
-                                               config=self.config)
+            if self._route_sharded(len(unweighted)):
+                dist = sharded_apsp(self._sharded_operands("boolean"),
+                                    sources).dist
+                self.sharded_flushes += 1
+                served_by = "sharded"
+            else:
+                (_, dist, _), = apsp_engine_blocks(self.prepared, sources,
+                                                   config=self.config)
+                served_by = "sweep"
             dist = dist.cpu().numpy()          # one copy per flush
             for row, q in zip(dist, unweighted):
                 self._fill_from_row(q, row)
                 self._cache_row("unweighted", q.source, row)
-                q.served_by = "sweep"
+                q.served_by = served_by
         if weighted:
             sources = np.asarray([q.source for q in weighted], np.int32)
-            res = weighted_apsp(self.prepared_weighted, sources=sources,
-                                config=self.weighted_config)
+            if self._route_sharded(len(weighted)):
+                res = sharded_apsp(self._sharded_operands("tropical"),
+                                   sources)
+                self.sharded_flushes += 1
+                served_by = "sharded"
+            else:
+                res = weighted_apsp(self.prepared_weighted, sources=sources,
+                                    config=self.weighted_config)
+                served_by = "sweep"
             dist = res.dist.cpu().numpy()      # one copy per flush
             for row, q in zip(dist, weighted):
                 self._fill_from_row(q, row)
                 self._cache_row("weighted", q.source, row)
-                q.served_by = "sweep"
+                q.served_by = served_by
         if analytics:
             self._flush_analytics(analytics)
             for q in analytics:
@@ -498,7 +549,9 @@ class GraphService:
     def _flush_analytics(self, queries: List[GraphQuery]) -> None:
         """Serve one micro-batch of centrality queries: every per-source
         measure rides ONE batched multi-source run; betweenness comes
-        from the per-service cache, built on first demand."""
+        from the per-service cache, built on first demand — through the
+        sharded executor when the service has a mesh and the graph has at
+        least ``sharded_threshold`` nodes."""
         per_source = set()
         want_bc = False
         for q in queries:
@@ -528,8 +581,12 @@ class GraphService:
                         int(res.eccentricity[i])
         if want_bc:
             if self._betweenness is None:
+                on_mesh = self._route_sharded(self.prepared.graph.n_nodes)
                 self._betweenness = betweenness(
-                    self.prepared, config=self.centrality_config)
+                    self.prepared, config=self.centrality_config,
+                    mesh=self.mesh if on_mesh else None)
+                if on_mesh:
+                    self.sharded_flushes += 1
             for q in queries:
                 if "betweenness" in q.analytics:
                     results[id(q)]["betweenness"] = \

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..graph.csr import resolve_device
+from ..launch.mesh import check_mesh, mesh_device
 
 
 def _children(node) -> Optional[List[Tuple[str, Any]]]:
@@ -208,13 +209,23 @@ def restore(ckpt_dir: str, step: int, like, *, verify: bool = True,
 
     With ``device=None`` the leaves are host arrays: numpy, or CPU
     tensors for a dtype numpy lacks.  With a ``device`` they are tensors
-    on it.  ``shardings=`` (the elastic re-shard onto a mesh) needs the
-    sharded executor, ROADMAP Queue 1 item 11, and raises."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=) needs the sharded executor (ROADMAP Queue "
-            "1 item 11), which is not ported to repro_torch yet")
+    on it.  ``shardings=`` is the elastic re-shard: a tree of meshes
+    (:class:`torch.distributed.device_mesh.DeviceMesh`) matching
+    ``like``, the counterpart of the JAX package's ``NamedSharding(mesh,
+    P())``; each leaf is restored, replicated, onto this rank's device of
+    its mesh.  A checkpoint written on one mesh restores onto whatever
+    mesh is alive now."""
+    if shardings is not None and device is not None:
+        raise ValueError("restore: pass shardings= or device=, not both")
     dev = resolve_device(device) if device is not None else None
+    meshes = None
+    if shardings is not None:
+        meshes = [m for _, m in _leaf_paths(shardings)]
+        if len(meshes) != len(_leaf_paths(like)):
+            raise ValueError(f"restore: {len(meshes)} shardings for "
+                             f"{len(_leaf_paths(like))} leaves")
+        for m in meshes:
+            check_mesh(m)
     d = os.path.join(ckpt_dir, f"step_{step:09d}")
     manifest = read_manifest(ckpt_dir, step)
     leaves = []
@@ -228,7 +239,9 @@ def restore(ckpt_dir: str, step: int, like, *, verify: bool = True,
                 raise IOError(f"checkpoint corruption in {path}: "
                               f"{digest} != {ent['sha256']}")
         leaf = _decode(raw, ent["dtype"], ent["shape"])
-        if dev is not None:
+        if meshes is not None:
+            leaf = torch.as_tensor(leaf).to(mesh_device(meshes[len(leaves)]))
+        elif dev is not None:
             leaf = torch.as_tensor(leaf).to(dev)
         leaves.append(leaf)
     return _rebuild(like, iter(leaves)), manifest["step"]

@@ -1,7 +1,8 @@
 """The port's facade against ``repro.prepare`` (boolean and counting
 semirings, centrality; the tropical facade is held in
-``test_torch_weighted.py``), the routes it does not port yet, the device
-rule, and the package boundaries: no JAX or ``repro`` import anywhere in
+``test_torch_weighted.py``; ``mesh=`` on CPU meshes in
+``test_torch_distributed.py``), its refusals, the device rule, and the
+package boundaries: no JAX or ``repro`` import anywhere in
 the port, one loop driver, and the core reaching its kernels only
 through the registry."""
 import ast
@@ -119,19 +120,19 @@ def test_unported_routes_raise(graphs):
     h = repro_torch.prepare(tg, device="cpu")
     with pytest.raises(ValueError, match="unknown semiring"):
         h.apsp([0], semiring="min_label")
-    # serving (item 9), resumable jobs (item 10) and the autotuner (item
-    # 12) are ported; on a mesh they wait for the sharded executor (item 11)
+    # every route takes mesh= (the sharded executor; a CPU mesh runs them
+    # in tests/test_torch_distributed.py): a foreign mesh object raises
+    # ValueError before anything is built or written
     calls = [
-        ("item 11", lambda: h.apsp([0], mesh=object())),
-        ("item 11", lambda: h.apsp([0], checkpoint_dir="ckpt",
-                                   mesh=object())),
-        ("item 11", lambda: h.serve(mesh=object())),
+        lambda: h.apsp([0], mesh=object()),
+        lambda: h.apsp([0], checkpoint_dir="ckpt", mesh=object()),
+        lambda: h.serve(mesh=object()),
+        lambda: h.centrality([0], mesh=object()),
     ]
-    for item, call in calls:
-        with pytest.raises(NotImplementedError, match=item):
+    for call in calls:
+        with pytest.raises(ValueError, match="DeviceMesh"):
             call()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        h.centrality([0], mesh=object())
+    assert not pathlib.Path("ckpt").exists()
     plan = h.tune(use_hlo=False)
     assert h.tuning is plan and plan.backend == "cpu:cpu"
     tuned = repro_torch.prepare(tg, tuning=plan, device="cpu")
@@ -182,6 +183,7 @@ SLICE_MODULES = (
     "kernels/tropical/kernel.py", "kernels/tropical/ref.py",
     "core/wcc.py", "core/bfs.py", "kernels/bovm/ops.py",
     "graph/dynamic.py", "core/incremental.py",
+    "core/distributed.py", "graph/partition.py", "launch/mesh.py",
 )
 
 

@@ -111,8 +111,16 @@ def test_roundtrip_nested_tree_host_and_device():
         assert torch.equal(dev["state"].dist, tree["state"].dist)
         assert torch.equal(dev["alpha"][0], tree["alpha"][0])
         assert dev["count"].dtype == torch.int64
-        with pytest.raises(NotImplementedError, match="item 11"):
+        # shardings= is a tree of meshes matching the tree (restored onto
+        # a CPU mesh in tests/test_torch_distributed.py)
+        with pytest.raises(ValueError, match="shardings for"):
             C.restore(d, 5, tree, shardings=object())
+        foreign = C._rebuild(tree, iter([object()] * len(C._leaf_paths(
+            tree))))
+        with pytest.raises(ValueError, match="DeviceMesh"):
+            C.restore(d, 5, tree, shardings=foreign)
+        with pytest.raises(ValueError, match="not both"):
+            C.restore(d, 5, tree, shardings=foreign, device="cpu")
 
 
 def test_restore_detects_corruption_and_missing_leaves():

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card against their plain versions, and
 the boolean, counting and tropical engines' kernel paths and incremental
 repair (K9 resuming each repair), the serving tier (K1 and K9 flushes)
-and a checkpointed job killed and resumed, on the card against the CPU.
+and a checkpointed job killed and resumed, on the card against the CPU;
+the sharded executor on NCCL at world size 1, and the kernels on the
+K-row blocks that ranks of a vertex-sharded mesh run.
 Needs an NVIDIA GPU and nvcc; without CUDA every test here skips.
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -1110,3 +1112,155 @@ def test_tune_on_card_counts_ops_and_keeps_results(cuda, tmp_path):
             got.sweeps == want.sweeps, semiring
         if semiring == "counting":
             assert torch.equal(got.sigma, want.sigma)
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A (1, 1) ``(data, model)`` mesh on NCCL at world size 1; the
+    process group is destroyed after the test."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp_path}/store", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        yield make_mesh((1, 1), ("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("semiring,mode,kernel", [
+    ("boolean", "dense", "packed_push_sweep"),
+    ("boolean", "sparse", None),
+    ("counting", "dense", "fused_counting_sweep"),
+    ("counting", "sparse", None),
+    ("tropical", "dense", "fused_minplus_sweep"),
+    ("tropical", "sparse", "sparse_relax_sweep"),
+])
+def test_sharded_executor_on_card_equals_the_engines(nccl_mesh, semiring,
+                                                     mode, kernel):
+    """``sharded_apsp`` at world size 1 on NCCL equals the engine's pinned
+    run on the card and on the CPU bit for bit, and launches its kernel
+    (K1, K5, K7, K9) without building an index after ``prepare_sharded``;
+    the boolean dense form with ``fused_steps=-1`` launches K3."""
+    from repro_torch.core.distributed import (ShardedConfig,
+                                              prepare_sharded, sharded_apsp)
+    g = gen.rmat(9, 6, directed=False, seed=5, device="cpu")
+    w = (np.random.default_rng(0).integers(4, 33, g.m_pad) / 8) \
+        .astype(np.float32)
+    srcs = np.arange(0, 512, 3)
+    single_mode = {"dense": "push" if semiring != "tropical" else "dense",
+                   "sparse": "sparse"}[mode]
+    weights = w if semiring == "tropical" else None
+    wants = [repro_torch.prepare(g.to(dev), weights=weights, mode=single_mode,
+                                 source_batch=64, device=dev)
+             .apsp(srcs, semiring=semiring) for dev in ("cpu", "cuda")]
+    all_k = {k.__name__: k for k in (
+        bovm.packed_push_sweep, bovm.fused_boolean_multisweep,
+        bovm.packed_live_words, counting.fused_counting_sweep,
+        counting.nonzero_words, tropical.fused_minplus_sweep,
+        tropical.sparse_relax_sweep, tropical.finite_words,
+        tropical.in_lanes)}
+    configs = [ShardedConfig(semiring=semiring, mode=mode)]
+    if semiring == "boolean" and mode == "dense":
+        configs.append(ShardedConfig(mode="dense", fused_steps=-1))
+    for cfg in configs:
+        ops = prepare_sharded(g, nccl_mesh, weights=weights, config=cfg)
+        assert ops.use_kernel and ops.device.type == "cuda"
+        before = {n: k.launches for n, k in all_k.items()}
+        res = sharded_apsp(ops, srcs)
+        got = {n: k.launches - before[n] for n, k in all_k.items()}
+        want_kernel = "fused_boolean_multisweep" if cfg.fused_steps \
+            else kernel
+        if want_kernel is not None:
+            assert got[want_kernel] > 0, (cfg, got)
+        assert not any(got[n] for n in ("packed_live_words", "nonzero_words",
+                                        "finite_words", "in_lanes")), got
+        for want in wants:
+            assert torch.equal(res.dist.cpu(), want.dist.cpu())
+            assert res.sweeps == want.sweeps
+            if semiring == "counting":
+                assert torch.equal(res.sigma.cpu(), want.sigma.cpu())
+        pinned = [res.sweeps, 0] if mode == "dense" else [0, res.sweeps]
+        assert res.direction_counts.tolist() == pinned
+
+
+def test_kernels_on_k_row_blocks_match_plain(cuda):
+    """What ranks of a C = 2 mesh launch: K1, K5 and K7 on each K-row
+    block and K9 on each part of the lanes equal their plain versions on
+    the CPU, and the blocks' OR / SUM of gated partials / MIN equals the
+    full operand's call."""
+    from repro_torch.core import distributed as D
+    from repro_torch.graph.partition import edge_partition_global
+    g = gen.rmat(9, 6, directed=False, seed=5, device="cuda")
+    w = torch.from_numpy((np.random.default_rng(1).integers(4, 33, g.m_pad)
+                          / 8).astype(np.float32)).to(cuda)
+    C = 2
+    n_pad = g.n_padded(128 * C)
+    nk = n_pad // C
+    s, step = 32, 3
+    f, d = _state(7, s, n_pad, density=0.05, visited=0.3)
+    f, d = f.to(cuda), d.to(cuda)
+    d[:, g.n_nodes:] = 0
+
+    def cpu(t):
+        return t.cpu() if isinstance(t, torch.Tensor) else t
+
+    def block(semiring, c, packed=False):
+        return D._dense_block(g, n_pad, c * nk, nk, semiring,
+                              w if semiring == "tropical" else None, packed)
+
+    def both(fn, *args, **kw):
+        got = fn(*args, **kw)
+        want = fn(*[cpu(a) for a in args], **kw)
+        _same(want, got)
+        return got
+
+    # K1: OR of the new bits
+    full = D._dense_block(g, n_pad, 0, n_pad, "boolean", None, True)
+    new_full, d_full = bovm.packed_push_sweep(pack_bits(f), full, d, step,
+                                              bs=s, wk=4)
+    acc = torch.zeros_like(new_full)
+    for c in range(C):
+        new_c, _ = both(bovm.packed_push_sweep,
+                        pack_bits(f[:, c * nk: (c + 1) * nk]),
+                        block("boolean", c, True), d, step, bs=s, wk=4)
+        acc |= new_c
+    assert torch.equal(acc, new_full)
+    assert torch.equal(torch.where(acc != 0, step, d), d_full)
+    # K5: the SUM of the gated partials
+    sg = torch.where(d >= 0, 1.0, 0.0).to(cuda)
+    fs = torch.where(f != 0, sg, 0.0)
+    full = D._dense_block(g, n_pad, 0, n_pad, "counting", None, False)
+    want = counting.fused_counting_sweep(fs, full, d, sg, step, bs=s)
+    cand = torch.zeros_like(sg)
+    for c in range(C):
+        new_c, _, sg_c = both(counting.fused_counting_sweep,
+                              fs[:, c * nk: (c + 1) * nk].contiguous(),
+                              block("counting", c), d, sg, step, bs=s)
+        cand += torch.where(new_c != 0, sg_c, 0.0)
+    new = (cand > 0) & (d < 0)
+    _same(want, (new.to(torch.int8), torch.where(new, step, d),
+                 torch.where(new, cand, sg)))
+    # K7 and K9: MIN
+    df = torch.where(d >= 0, d.to(torch.float32), float("inf"))
+    fd = torch.where(f != 0, df, float("inf"))
+    w_min = w.min()
+    full = D._dense_block(g, n_pad, 0, n_pad, "tropical", w, False)
+    want = tropical.fused_minplus_sweep(fd, full, df, w_min, bs=s)
+    nd = torch.full_like(df, float("inf"))
+    for c in range(C):
+        _, nd_c = both(tropical.fused_minplus_sweep,
+                       fd[:, c * nk: (c + 1) * nk].contiguous(),
+                       block("tropical", c), df, w_min, bs=s)
+        nd = torch.minimum(nd, nd_c)
+    _same(want, ((nd < df).to(torch.int8), nd))
+    want = tropical.sparse_relax_sweep(f, df, g.src, g.dst, w)
+    parts = edge_partition_global(g, C, weights=w)
+    nd = torch.full_like(df, float("inf"))
+    for c in range(C):
+        ps, pd, pw = (parts[k][c].contiguous() for k in ("src", "dst", "w"))
+        _, nd_c = both(tropical.sparse_relax_sweep, f, df, ps, pd, pw)
+        nd = torch.minimum(nd, nd_c)
+    _same(want, ((nd < df).to(torch.int8), nd))

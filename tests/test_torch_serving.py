@@ -35,6 +35,7 @@ from repro.serve import select_top_k as jselect_top_k
 import repro_torch
 from repro_torch.convert import csr_from_arrays
 from repro_torch.core.centrality import CentralityConfig
+from repro_torch.core.distributed import ShardedConfig
 from repro_torch.core.engine import EngineConfig, prepare_graph
 from repro_torch.core.weighted import WeightedConfig
 from repro_torch.graph import landmarks as tland
@@ -497,14 +498,16 @@ def test_deadline_minirun_surfaces_expired_queries():
 def test_service_rules_and_refusals():
     jg = jgen.grid2d(6, 6)
     tg = _port(jg)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # a CPU mesh serves in tests/test_torch_distributed.py; a foreign mesh
+    # object raises
+    with pytest.raises(ValueError, match="DeviceMesh"):
         GraphService(tg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        GraphService(tg, sharded_config=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         repro_torch.prepare(tg, device="cpu").serve(mesh=object())
-    # sharded_threshold is inert without a mesh, as in the JAX package
-    svc = GraphService(tg, max_batch=8, sharded_threshold=1, device="cpu")
+    # sharded_threshold and sharded_config are inert without a mesh, as in
+    # the JAX package
+    svc = GraphService(tg, max_batch=8, sharded_threshold=1, device="cpu",
+                       sharded_config=ShardedConfig(mode="sparse"))
     for i in range(3):
         svc.submit(GraphQuery(qid=i, source=i))
     assert all(q.served_by == "sweep" for q in svc.flush())
