@@ -103,8 +103,36 @@ K5, K7 and K9 on C = 2 K-row blocks (and parts of the lanes) of rmat16
 after 2 sweeps from all 1,024 sources (a (1, 2) rank's rows, eight
 128-row tiles), each with its block's index, bit for bit to its plain
 version, and the blocks' OR / SUM / MIN to the full operand's call
-(comparisons: their launches do not count).  The launch counts are set
-to 0 before each of these four paths and read after.
+(comparisons: their launches do not count).  Then the rest of the
+package's surface.  Phase ``io``: rmat16 written to disk with
+``save_mtx``, as a ``symmetric`` pattern file (its 910,200 ``src < dst``
+entries, written here), as a 1-indexed edge list, and with its lane
+weights through ``save_mtx(weights=)`` and ``save_edgelist(weights=)``;
+each read back onto the card with ``load_mtx`` / ``load_edgelist`` and
+held to the in-memory graph, CSR arrays and lane weights bit for bit (an
+edge list carries no node count, so it holds the nodes up to the largest
+id with an edge: rmat16's isolated tail drops off, and the runs on it
+compare that range); then ``prepare(loaded).apsp`` default, pinned push
+(K1), pinned pull (K2) and fused (K3) on the general file, the tropical
+default (K9) and pinned dense (K7) on the weighted one and the tropical
+default on the weighted edge list, each ``dist`` equal to the in-memory
+graph's run; save, load and apsp seconds apart.  Phase ``suite``: every
+graph of ``configs.dawn.GRAPH_SUITE`` on the card, the default
+``apsp`` over ``min(SOURCE_SET_SIZE, n)`` seeded sources, every row equal
+to scipy's BFS.  Phase ``sample``: ``sample_subgraph`` on rmat16 from its
+1,024 sources with GraphSAGE's fanouts (25, 10) and a CUDA generator,
+every sampled id checked on the host to be an out-neighbour of its parent
+(or the parent at degree 0), and ``sampled_batch``'s shapes.  Phase
+``train``: a bigram model with a stacked (L, d, d) leaf over
+``lm_iterator`` batches through ``make_train_step`` / ``train`` on the
+card: AdamW, Adafactor and SGD make the loss fall, ``accum=4`` equals
+``accum=1`` within rtol 1e-5 / atol 1e-6, a ``CheckpointHook`` run
+restored and resumed equals the unbroken run bit for bit, int8 / top-k
+compression equals the CPU bit for bit, and ``shard_batch``,
+``make_jitted_step`` and ``make_cross_pod_psum`` run on a world-size-1
+NCCL ``(pod, data, model)`` mesh.  The launch counts are set to 0 before
+each of these eight paths and read after; the io path must launch K1,
+K2, K3, K7 and K9.
 Each kernel line carries its launches on every path
 (``launches_by_path``) and their sum (``launches``).
 One JSON line per phase; the last line is
@@ -175,6 +203,16 @@ SHARDED_QUERIES = 512        # serving queries of the sharded phase
 SHARDED_THRESHOLD = 16       # its flushes of at least this many: the mesh
 SHARDED_BLOCK_ROWS = 1024    # source rows of the K-row block check: the
                              # whole shard of a (1, 2) mesh's rank
+SAMPLE_FANOUTS = (25, 10)    # GraphSAGE's fanouts (the sample phase)
+SAMPLE_FEAT = 100            # feature width of its sampled batch
+TRAIN_VOCAB = 256            # the train phase's bigram model: vocabulary,
+TRAIN_D = 64                 # width,
+TRAIN_LAYERS = 2             # layers of its stacked (L, d, d) leaf,
+TRAIN_BATCH = 32             # lm_iterator's global batch,
+TRAIN_SEQ = 64               # sequence length,
+TRAIN_STEPS = 20             # and steps per optimizer
+TRAIN_RTOL = 1e-5            # accum=4 against accum=1 (float32 sums of
+TRAIN_ATOL = 1e-6            # four microbatches in another order)
 # float32 running sum of degrees over <= ~1,000 per-sweep partial sums,
 # each a tree reduction of < 2^24-exact terms: relative error stays
 # below (1,000 + 24) * 2^-24 ~ 6.1e-5
@@ -1742,6 +1780,453 @@ def sharded_block_check(torch, g, lanes, sources):
          torch.equal((nd < d).to(torch.int8), new_full))
     return lines
 
+def io_run(torch, repro_torch, all_kernels, g, lanes, sources, want_bool,
+           want_trop):
+    """A graph file on disk -> the port's loaders -> ``prepare`` ->
+    ``apsp``, at rmat16's full width.  rmat16 is written with
+    ``save_mtx``, as a ``symmetric`` pattern file (its ``src < dst``
+    entries, written here with numpy), as a 1-indexed edge list, and with
+    the lane weights through ``save_mtx(weights=)`` and
+    ``save_edgelist(weights=)``; each file is read back onto the card and
+    held equal to the in-memory graph (the six CSR arrays; the lane
+    weights of the real edges bit for bit, +inf on the padded lanes).
+    The general file's graph runs the boolean default, pinned push (K1),
+    pinned pull (K2) and ``fused_steps=-1`` (K3); the weighted file's the
+    tropical default (K9) and pinned dense (K7), the weighted edge list's
+    the tropical default: every ``dist`` equal to the in-memory graph's
+    default run (``want_bool`` / ``want_trop``, host copies; its pinned
+    and fused runs equal it, checked above).  Returns one line of fields
+    per file and per run."""
+    import shutil
+    import tempfile
+    from repro_torch.graph import io as gio
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_io_")
+    lines = []
+    try:
+        paths = {k: str(Path(root) / k) for k in (
+            "general.mtx", "symmetric.mtx", "edges_1idx.txt",
+            "weighted.mtx", "weighted.txt")}
+        src, dst = g.edge_arrays_np()
+        lanes_t = torch.from_numpy(lanes)
+        upper = src < dst
+        # an edge list has no node count: it holds the nodes up to the
+        # largest id with an edge, so rmat16's isolated tail drops off
+        n_list = int(max(src.max(), dst.max())) + 1
+
+        def n_of(name):
+            return n_list if name.endswith(".txt") else g.n_nodes
+
+        def write_symmetric(path):
+            with open(path, "w") as f:
+                f.write("%%MatrixMarket matrix coordinate pattern "
+                        "symmetric\n")
+                f.write(f"{g.n_nodes} {g.n_nodes} {int(upper.sum())}\n")
+                np.savetxt(f, np.stack([dst[upper] + 1, src[upper] + 1],
+                                       axis=1), fmt="%d")
+
+        writers = {
+            "general.mtx": lambda p: gio.save_mtx(g, p),
+            "symmetric.mtx": write_symmetric,
+            "edges_1idx.txt": lambda p: np.savetxt(
+                p, np.stack([src + 1, dst + 1], axis=1), fmt="%d"),
+            "weighted.mtx": lambda p: gio.save_mtx(g, p, weights=lanes_t),
+            "weighted.txt": lambda p: gio.save_edgelist(g, p,
+                                                        weights=lanes),
+        }
+        readers = {
+            "general.mtx": lambda p: (gio.load_mtx(p), None),
+            "symmetric.mtx": lambda p: (gio.load_mtx(p), None),
+            "edges_1idx.txt": lambda p: (gio.load_edgelist(
+                p, zero_indexed=False), None),
+            "weighted.mtx": lambda p: gio.load_mtx(p, return_weights=True),
+            "weighted.txt": lambda p: gio.load_edgelist(p, weighted=True),
+        }
+        loaded = {}
+        for name, path in paths.items():
+            t0 = time.perf_counter()
+            writers[name](path)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            lg, lw = readers[name](path)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            if lg.device.type != "cuda" or (lw is not None and
+                                            lw.device.type != "cuda"):
+                raise AssertionError(f"io/{name}: the loader's default "
+                                     f"device is not the card")
+            n = n_of(name)
+            if (lg.n_nodes, lg.n_edges, lg.m_pad) != (n, g.n_edges, g.m_pad):
+                raise AssertionError(f"io/{name}: sizes differ from the "
+                                     f"in-memory graph")
+            m = g.n_edges
+            for k in g.ARRAYS:
+                a, b = getattr(lg, k), getattr(g, k)
+                same = torch.equal(a, b[: n + 1]) if k.startswith("indptr") \
+                    else torch.equal(a[:m], b[:m]) and bool((a[m:] == n).all())
+                if not same:
+                    raise AssertionError(f"io/{name}: {k} differs from the "
+                                         f"in-memory graph")
+            if lw is not None:
+                got = lw.cpu().numpy()
+                if not (np.array_equal(got[: g.n_edges].view(np.int32),
+                                       lanes[: g.n_edges].view(np.int32))
+                        and np.isinf(got[g.n_edges:]).all()):
+                    raise AssertionError(f"io/{name}: lane weights differ "
+                                         f"from the in-memory lanes")
+            loaded[name] = (lg, lw)
+            lines.append(dict(file=name, bytes=Path(path).stat().st_size,
+                              entries=int(upper.sum()) if "symmetric" in name
+                              else g.n_edges, n_nodes=n,
+                              isolated_tail_dropped=g.n_nodes - n,
+                              save_seconds=save_s, load_seconds=load_s,
+                              arrays_equal=True,
+                              lanes_equal=lw is not None))
+        runs = [("general.mtx", "boolean", "default", {}),
+                ("general.mtx", "boolean", "push",
+                 dict(mode="push", use_kernel=True)),
+                ("general.mtx", "boolean", "pull",
+                 dict(mode="pull", use_kernel=True)),
+                ("general.mtx", "boolean", "fused", dict(fused_steps=-1)),
+                ("weighted.mtx", "tropical", "default", {}),
+                ("weighted.mtx", "tropical", "dense",
+                 dict(mode="dense", use_kernel=True)),
+                ("weighted.txt", "tropical", "default", {})]
+        for name, semiring, run, opts in runs:
+            lg, lw = loaded[name]
+            h = repro_torch.prepare(lg, weights=lw, **opts)
+            if semiring == "boolean":            # operand builds = set-up
+                h.prepared().adj_pull
+                if run != "fused":
+                    h.prepared().adj_pull_index
+            else:                                # as the weighted phase
+                pw = h.prepared_weighted()
+                pw.wdense
+                pw.wdense_index
+                if run == "default":
+                    pw.relax_index
+            n = n_of(name)
+            keep = sources < n                 # the sources the file holds
+            before = launch_counts(all_kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = h.apsp(sources[keep], semiring=semiring)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            want = want_bool if semiring == "boolean" else want_trop
+            rows = torch.from_numpy(np.flatnonzero(keep))
+            if not torch.equal(res.dist.cpu(), want[0][rows, :n]) or (
+                    n == g.n_nodes and res.sweeps != want[2]):
+                raise AssertionError(f"io/{name}/{semiring}/{run}: dist or "
+                                     f"sweeps differ from the in-memory "
+                                     f"graph's run")
+            lines.append(dict(file=name, semiring=semiring, run=run,
+                              options=opts, sources=int(keep.sum()),
+                              apsp_seconds=wall, sweeps=res.sweeps,
+                              direction_counts=res.direction_counts.tolist(),
+                              dist_equal_in_memory=True,
+                              launches=launched_since(all_kernels, before)))
+            del h, res
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return lines
+
+
+def suite_run(torch, repro_torch, all_kernels):
+    """Every graph of ``configs.dawn.GRAPH_SUITE`` (the paper's experiment
+    families) on the card: ``prepare(g).apsp`` over ``min(SOURCE_SET_SIZE,
+    n)`` seeded sources, default options, every row equal to scipy's BFS.
+    One line per graph."""
+    from repro_torch.configs import dawn
+    rng = np.random.default_rng(SEED)
+    lines = []
+    for name in sorted(dawn.GRAPH_SUITE):
+        t0 = time.perf_counter()
+        g = dawn.GRAPH_SUITE[name]()
+        build_s = time.perf_counter() - t0
+        if g.device.type != "cuda":
+            raise AssertionError(f"suite/{name}: not on the card")
+        k = min(dawn.SOURCE_SET_SIZE, g.n_nodes)
+        srcs = np.sort(rng.choice(g.n_nodes, k, replace=False)) \
+            .astype(np.int32)
+        h = repro_torch.prepare(g)
+        h.prepared()
+        before = launch_counts(all_kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = h.apsp(srcs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not np.array_equal(res.dist.cpu().numpy(), scipy_dist(g, srcs)):
+            raise AssertionError(f"suite/{name}: dist differs from scipy "
+                                 f"BFS")
+        lines.append(dict(graph=name, n_nodes=g.n_nodes, n_edges=g.n_edges,
+                          sources=k, build_seconds=build_s, seconds=wall,
+                          sweeps=res.sweeps,
+                          direction_counts=res.direction_counts.tolist(),
+                          rows_checked=k,
+                          launches=launched_since(all_kernels, before)))
+        del h, res, g
+    torch.cuda.empty_cache()
+    return lines
+
+
+def sample_run(torch, g, seeds):
+    """GraphSAGE's fanout sample on rmat16 on the card: ``sample_subgraph``
+    from 1,024 seeds with fanouts (25, 10) and a CUDA generator, every id
+    of hop h+1 an out-neighbour of its parent (or the parent itself at
+    degree 0), held on the host against the CSR; then ``sampled_batch``'s
+    shapes.  One line of fields."""
+    from repro_torch.data.graphs import sampled_batch
+    from repro_torch.graph.sampler import sample_subgraph
+    gen_ = torch.Generator(device="cuda")
+    gen_.manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    layers = sample_subgraph(g, seeds, gen_, SAMPLE_FANOUTS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sizes = [len(seeds)]
+    for f in SAMPLE_FANOUTS:
+        sizes.append(sizes[-1] * f)
+    if [int(l.shape[0]) for l in layers] != sizes or \
+            any(l.device.type != "cuda" for l in layers):
+        raise AssertionError("sample: layer sizes or devices are wrong")
+    src, dst = g.edge_arrays_np()
+    keys = src.astype(np.int64) * g.n_nodes + dst       # sorted: the CSR
+    deg = g.out_degrees().cpu().numpy()
+    host = [l.cpu().numpy().astype(np.int64) for l in layers]
+    for h, f in enumerate(SAMPLE_FANOUTS):
+        par = np.repeat(host[h], f)
+        kid = host[h + 1]
+        pos = np.minimum(np.searchsorted(keys, par * g.n_nodes + kid),
+                         len(keys) - 1)
+        ok = np.where(deg[par] > 0, keys[pos] == par * g.n_nodes + kid,
+                      kid == par)
+        if not ok.all():
+            raise AssertionError(f"sample: {int((~ok).sum())} ids of hop "
+                                 f"{h + 1} are not neighbours of their "
+                                 f"parents")
+    t0 = time.perf_counter()
+    batch = sampled_batch(g, seeds, SAMPLE_FANOUTS, d_feat=SAMPLE_FEAT,
+                          seed=SEED)
+    batch_s = time.perf_counter() - t0
+    n_sub, n_e = sum(sizes), sum(sizes[1:])
+    want = {"feat": (n_sub, SAMPLE_FEAT), "src": (n_e,), "dst": (n_e,),
+            "labels": (n_sub,), "targets": (n_sub, 2), "node_mask": (n_sub,),
+            "pos": (n_sub, 3), "species": (n_sub,), "graph_id": (n_sub,),
+            "energy": (1,)}
+    if {k: v.shape for k, v in batch.items()} != want:
+        raise AssertionError("sample: sampled_batch shapes are wrong")
+    return dict(seeds=int(len(seeds)), fanouts=list(SAMPLE_FANOUTS),
+                layer_sizes=sizes, seconds=wall,
+                zero_degree_parents=int((deg[host[0]] == 0).sum()),
+                neighbours_checked=int(sum(sizes[1:])),
+                batch_seconds=batch_s, batch_nodes=n_sub, d_feat=SAMPLE_FEAT)
+
+
+def train_run(torch, smi):
+    """The training substrate on the card: a bigram model with a stacked
+    (L, d, d) residual leaf over ``lm_iterator`` batches, through
+    ``make_train_step`` and ``train``: AdamW, Adafactor and SGD each make
+    the loss fall; ``accum=4`` equals ``accum=1`` (SGD: the parameter
+    change is the gradient) within rtol 1e-5 / atol 1e-6; a
+    ``CheckpointHook`` run restored and resumed equals the unbroken run
+    bit for bit; ``compress_int8`` / ``compress_topk`` on the card equal
+    the CPU bit for bit; then ``shard_batch``, ``make_jitted_step`` and
+    ``make_cross_pod_psum`` on a world-size-1 NCCL mesh ``(pod, data,
+    model)``.  Yields lines of fields."""
+    import datetime
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.data.tokens import lm_iterator
+    from repro_torch.launch.mesh import PartitionSpec as P, make_mesh
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import compression as C
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_loop import (make_jitted_step,
+                                              make_train_step, train)
+    v, d, n_l = TRAIN_VOCAB, TRAIN_D, TRAIN_LAYERS
+
+    def params0():
+        rng = np.random.default_rng(SEED)
+        p = {"emb": rng.normal(size=(v, d)) * 0.5,
+             "stack": rng.normal(size=(n_l, d, d)) / np.sqrt(d),
+             "out": rng.normal(size=(d, v)) * 0.5, "bias": np.zeros(v)}
+        return {k: torch.from_numpy(x.astype(np.float32)).cuda()
+                for k, x in p.items()}
+
+    def loss_fn(params, batch):
+        # one-hot products, not an embedding gather: a gather's backward
+        # adds with atomics on the card, in no fixed order, and the resume
+        # check asks for the same bits twice
+        onehot = lambda t: torch.nn.functional.one_hot(
+            t.long(), v).to(torch.float32)
+        h = onehot(batch["tokens"]) @ params["emb"]
+        for i in range(params["stack"].shape[0]):
+            h = torch.tanh(h @ params["stack"][i]) + h
+        logp = torch.log_softmax(h @ params["out"] + params["bias"], dim=-1)
+        return -(onehot(batch["labels"]) * logp).sum(-1).mean()
+
+    def data(start=0):
+        return lm_iterator(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                           vocab=v, seed=SEED, start_step=start)
+
+    opts = {"adamw": O.adamw(peak_lr=1e-2, schedule=O.cosine_schedule(
+                1e-2, warmup=2, total=2 * TRAIN_STEPS)),
+            "adafactor": O.adafactor(peak_lr=3e-2, schedule=O.cosine_schedule(
+                3e-2, warmup=2, total=2 * TRAIN_STEPS)),
+            "sgd": O.sgd(1.0)}
+    for name, opt in opts.items():
+        losses = []
+        p = params0()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, s, _ = train(p, opt.init(p), make_train_step(loss_fn, opt),
+                        data(), n_steps=TRAIN_STEPS,
+                        hooks=[lambda i, p_, s_, m: losses.append(
+                            float(m["loss"]))])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not (np.mean(losses[-3:]) < losses[0] and
+                all(np.isfinite(losses))):
+            raise AssertionError(f"train/{name}: the loss did not fall "
+                                 f"({losses[0]} -> {losses[-3:]})")
+        if any(x.device.type != "cuda" for x in p.values()):
+            raise AssertionError(f"train/{name}: params left the card")
+        yield dict(check="loss_falls", optimizer=name, steps=TRAIN_STEPS,
+                   first_loss=losses[0], last_loss=losses[-1],
+                   seconds=wall, nvidia_smi=smi)
+
+    # accum=4 against accum=1: one SGD step, the same batch
+    opt = O.sgd(0.1)
+    p = params0()
+    batch = next(data())
+    p1, _, m1 = make_train_step(loss_fn, opt)(p, opt.init(p), batch)
+    p4, _, m4 = make_train_step(loss_fn, opt, accum=4)(p, opt.init(p), batch)
+    err = max(float(((p4[k] - p1[k]).abs() - TRAIN_ATOL
+                     - TRAIN_RTOL * p1[k].abs()).max()) for k in p)
+    if err > 0 or not torch.allclose(m4["loss"], m1["loss"],
+                                     rtol=TRAIN_RTOL, atol=0):
+        raise AssertionError(f"train: accum=4 differs from accum=1 beyond "
+                             f"rtol {TRAIN_RTOL} / atol {TRAIN_ATOL}")
+    yield dict(check="accum", accum=4, rtol=TRAIN_RTOL, atol=TRAIN_ATOL,
+               loss_1=float(m1["loss"]), loss_4=float(m4["loss"]),
+               max_abs_diff=max(float((p4[k] - p1[k]).abs().max())
+                                for k in p))
+
+    # checkpoint, restore, resume: the unbroken run's bits
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        opt = opts["adamw"]
+        step = make_train_step(loss_fn, opt)
+        p = params0()
+        s = opt.init(p)
+        hook = ckpt.CheckpointHook(root, interval=TRAIN_STEPS // 2)
+        pa, sa, _ = train(p, s, step, data(), n_steps=TRAIN_STEPS,
+                          hooks=[hook])
+        hook.flush()
+        t0 = time.perf_counter()
+        tree, at = ckpt.restore(root, ckpt.latest_step(root),
+                                {"params": p, "opt": s}, device="cuda")
+        restore_s = time.perf_counter() - t0
+        pb, sb, _ = train(tree["params"], tree["opt"], step, data(at),
+                          n_steps=at + TRAIN_STEPS // 2, start_step=at)
+        pc, sc, _ = train(pa, sa, step, data(at),
+                          n_steps=at + TRAIN_STEPS // 2, start_step=at)
+        same = all(torch.equal(pb[k], pc[k]) for k in pc) and all(
+            torch.equal(sb[f][k], sc[f][k]) for f in ("m", "v") for k in pc)
+        if at != TRAIN_STEPS or not same or not torch.equal(sb["step"],
+                                                             sc["step"]):
+            raise AssertionError("train: the resumed run differs from the "
+                                 "unbroken run")
+        yield dict(check="resume", restored_step=at,
+                   checkpoints=hook.written, restore_seconds=restore_s,
+                   bit_identical=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # compression on the card against the CPU, with error feedback
+    grads = {k: torch.randn(x.shape, generator=torch.Generator(
+        device="cuda").manual_seed(i), device="cuda")
+        for i, (k, x) in enumerate(params0().items())}
+    for method in ("int8", "topk"):
+        ef_c = C.init_error_feedback(grads)
+        ef_h = C.init_error_feedback({k: x.cpu() for k, x in grads.items()})
+        for _ in range(3):
+            if method == "int8":
+                (gc, ef_c), (gh, ef_h) = (C.compress_int8(grads, ef_c),
+                                          C.compress_int8(
+                    {k: x.cpu() for k, x in grads.items()}, ef_h))
+            else:
+                (gc, ef_c), (gh, ef_h) = (C.compress_topk(grads, ef_c, 0.05),
+                                          C.compress_topk(
+                    {k: x.cpu() for k, x in grads.items()}, ef_h, 0.05))
+            for k in grads:
+                if not (torch.equal(gc[k].cpu(), gh[k]) and
+                        torch.equal(ef_c[k].cpu(), ef_h[k])):
+                    raise AssertionError(f"train: {method} compression of "
+                                         f"{k} differs from the CPU")
+        raw, wire = C.compressed_bytes(grads, method, 0.05)
+        yield dict(check="compression", method=method, rounds=3,
+                   bit_identical_cpu=True, raw_bytes=raw, wire_bytes=wire)
+
+    # the mesh: NCCL at world size 1, a (1, 1, 1) (pod, data, model) mesh
+    nccl_dir = tempfile.mkdtemp(prefix="chip_smoke_train_nccl_")
+    dist.init_process_group(
+        "nccl", init_method=f"file://{nccl_dir}/store", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"))
+        batch = next(data())
+        specs = {"tokens": P("data"), "labels": P(("data", "model"))}
+        t0 = time.perf_counter()
+        placed = shard_batch(mesh, batch, specs)
+        torch.cuda.synchronize()
+        shard_s = time.perf_counter() - t0
+        for k, x in placed.items():
+            if x.to_local().device.type != "cuda" or not np.array_equal(
+                    x.full_tensor().cpu().numpy(), batch[k]):
+                raise AssertionError(f"train: shard_batch placed {k} wrong")
+        opt = opts["adamw"]
+        param_specs = {"emb": P("data", None), "stack": P(None, "data",
+                                                          "model"),
+                       "out": P(None, "model"), "bias": P()}
+        jstep, _ = make_jitted_step(loss_fn, opt, mesh, param_specs,
+                                    batch_specs=specs)
+        step = make_train_step(loss_fn, opt)
+        pj = pp = params0()
+        sj = sp = opt.init(pp)
+        for i, b in zip(range(2), data()):
+            pj, sj, _ = jstep(pj, sj, shard_batch(mesh, b, specs))
+            pp, sp, _ = step(pp, sp, b)
+        if not all(torch.equal(pj[k].full_tensor(), pp[k]) for k in pp):
+            raise AssertionError("train: make_jitted_step differs from the "
+                                 "step on one device")
+        g = grads["out"]
+        t0 = time.perf_counter()
+        got = C.make_cross_pod_psum("int8", mesh=mesh)(g)
+        torch.cuda.synchronize()
+        psum_s = time.perf_counter() - t0
+        h = g.cpu().numpy()
+        scale = np.maximum(np.abs(h).max() / np.float32(127.0),
+                           np.float32(1e-12))
+        want = np.clip(np.round(h / scale), -127, 127).astype(np.int8) \
+            .astype(np.int32).astype(np.float32) * scale
+        if not np.array_equal(got.cpu().numpy(), want):
+            raise AssertionError("train: the cross-pod sum differs from "
+                                 "the shared-scale int32 formula")
+        yield dict(check="mesh", mesh=[1, 1, 1], shard_batch_seconds=shard_s,
+                   jitted_steps=2, jitted_equal=True,
+                   cross_pod_psum_seconds=psum_s, psum_equal=True)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(nccl_dir, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2722,11 +3207,11 @@ def main() -> int:
         for k in ks:
             by_path[k.__name__][path] = launches[k.__name__]
 
-    def path_launches(path, before):
+    def path_launches(path, before, zeros=False):
         got = {k.__name__: k.launches - b
                for k, b in zip(all_kernels, before)}
         for name_, c in got.items():
-            if c:
+            if c or zeros:
                 by_path[name_][path] = c
                 launches[name_] += c
         return got
@@ -2918,7 +3403,59 @@ def main() -> int:
     finally:
         dist.destroy_process_group()
         shutil.rmtree(nccl_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # -- graph files: rmat16 written, read back onto the card, prepared and
+    # run (K1, K2, K3, K7, K9) -------------------------------------------
+    for mod in (bovm, counting, tropical):
+        mod.reset_launches()
+    before = [0] * len(all_kernels)
+    t0 = time.perf_counter()
+    for fields in io_run(torch, repro_torch, all_kernels, graphs["rmat16"],
+                         lanes_of["rmat16"], srcs["rmat16"],
+                         untuned[("boolean", "rmat16")],
+                         untuned[("tropical", "rmat16")]):
+        emit(phase="io", graph="rmat16", nvidia_smi=smi, **fields)
+    got = path_launches("io", before, zeros=True)
+    emit(phase="io_path", launches=got, seconds=time.perf_counter() - t0)
+    for name in ("packed_push_sweep", "packed_pull_sweep",
+                 "fused_boolean_multisweep", "fused_minplus_sweep",
+                 "sparse_relax_sweep"):
+        if got[name] < 1:
+            raise AssertionError(f"{name} never launched on the io path")
     del untuned
+    torch.cuda.empty_cache()
+
+    # -- the paper's experiment families (SUITE) against scipy's BFS -------
+    for mod in (bovm, counting, tropical):
+        mod.reset_launches()
+    before = [0] * len(all_kernels)
+    t0 = time.perf_counter()
+    for fields in suite_run(torch, repro_torch, all_kernels):
+        emit(phase="suite", nvidia_smi=smi, **fields)
+    got = path_launches("suite", before, zeros=True)
+    emit(phase="suite_path", launches=got, seconds=time.perf_counter() - t0)
+
+    # -- GraphSAGE's fanout sampler on rmat16 -------------------------------
+    for mod in (bovm, counting, tropical):
+        mod.reset_launches()
+    before = [0] * len(all_kernels)
+    emit(phase="sample", graph="rmat16", nvidia_smi=smi,
+         **sample_run(torch, graphs["rmat16"], srcs["rmat16"]))
+    emit(phase="sample_path",
+         launches=path_launches("sample", before, zeros=True))
+
+    # -- the training substrate: optimizers, accumulation, resume,
+    # compression, the mesh step -----------------------------------------
+    for mod in (bovm, counting, tropical):
+        mod.reset_launches()
+    before = [0] * len(all_kernels)
+    t0 = time.perf_counter()
+    for fields in train_run(torch, smi):
+        emit(phase="train", **fields)
+    emit(phase="train_path",
+         launches=path_launches("train", before, zeros=True),
+         seconds=time.perf_counter() - t0)
     torch.cuda.empty_cache()
 
     # launches of the comparisons above do not count: report those of the

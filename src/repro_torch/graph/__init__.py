@@ -3,10 +3,10 @@ from .csr import (CSRGraph, DegreeStats, resolve_device, same_device,
 from .dynamic import DynamicCSRGraph
 from .landmarks import (STRATEGIES, degree_landmarks, farthest_point_fill,
                         select_landmarks)
-from . import generators, landmarks, partition
+from . import generators, landmarks, partition, sampler, io
 
 __all__ = ["CSRGraph", "DegreeStats", "DynamicCSRGraph", "generators",
-           "landmarks", "partition", "resolve_device", "same_device",
-           "symmetrize",
+           "io", "landmarks", "partition", "resolve_device", "same_device",
+           "sampler", "symmetrize",
            "STRATEGIES", "degree_landmarks", "farthest_point_fill",
            "select_landmarks"]

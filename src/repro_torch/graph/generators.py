@@ -152,3 +152,25 @@ def bipartite_sessions(n_users: int, n_items: int, clicks_per_user: int, *,
     src, dst = symmetrize(users, items)
     return CSRGraph.from_edges(src, dst, n_users + n_items, device=device)
 
+
+# the paper's experiment families; each entry takes the device (``None``:
+# the card)
+SUITE = {
+    "grid_road_sm": lambda device=None: grid2d(64, 64, device=device),
+    "grid_road_md": lambda device=None: grid2d(180, 180, device=device),
+    "rmat_social_sm": lambda device=None: rmat(10, 8, directed=False, seed=1,
+                                               device=device),
+    "rmat_social_md": lambda device=None: rmat(13, 12, directed=False,
+                                               seed=2, device=device),
+    "ws_citation_sm": lambda device=None: watts_strogatz(
+        4096, 8, 0.05, seed=3, device=device),
+    "ws_citation_md": lambda device=None: watts_strogatz(
+        20000, 10, 0.08, seed=4, device=device),
+    "er_uniform_sm": lambda device=None: erdos_renyi(
+        4096, 6.0, directed=False, seed=5, device=device),
+    "ba_web_sm": lambda device=None: barabasi_albert(4096, 4, seed=6,
+                                                     device=device),
+    "disconnected_sm": lambda device=None: disconnected(24, 160, 4.0, seed=7,
+                                                        device=device),
+    "mycielskian10": lambda device=None: mycielskian(10, device=device),
+}

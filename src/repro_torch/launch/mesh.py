@@ -49,6 +49,34 @@ def _device_type(device) -> str:
     return dev.type
 
 
+class PartitionSpec:
+    """How a tensor lies on a mesh, one entry per tensor dimension: ``None``
+    (not split), an axis name, or a tuple of axis names (split over those
+    axes, the first the major one) — the port's counterpart of
+    ``jax.sharding.PartitionSpec``.  Dimensions past the last entry are
+    not split; ``PartitionSpec()`` replicates the whole tensor."""
+
+    __slots__ = ("parts",)
+
+    def __init__(self, *parts):
+        self.parts = tuple(parts)
+
+    def __iter__(self):
+        return iter(self.parts)
+
+    def __len__(self):
+        return len(self.parts)
+
+    def __eq__(self, other):
+        return isinstance(other, PartitionSpec) and self.parts == other.parts
+
+    def __hash__(self):
+        return hash(self.parts)
+
+    def __repr__(self):
+        return f"PartitionSpec{self.parts!r}"
+
+
 def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], *,
               device=None, ranks: Optional[Sequence[int]] = None):
     """A mesh of ``shape`` with axis names ``axes`` over ``ranks`` (the

@@ -1264,3 +1264,62 @@ def test_kernels_on_k_row_blocks_match_plain(cuda):
         _, nd_c = both(tropical.sparse_relax_sweep, f, df, ps, pd, pw)
         nd = torch.minimum(nd, nd_c)
     _same(want, ((nd < df).to(torch.int8), nd))
+
+
+def test_loaders_default_to_the_card_and_equal_the_cpu_load(cuda, tmp_path):
+    """``load_mtx`` / ``load_edgelist`` with no ``device`` put the graph
+    and its lane weights on the card, equal to the CPU load; the loaded
+    graph runs K1 (pinned push) and K9 (tropical sparse) there."""
+    from repro_torch.graph import io as gio
+    g = gen.rmat(9, 6, directed=False, seed=3, device="cpu")
+    w = torch.from_numpy((np.random.default_rng(3).integers(
+        4, 33, g.m_pad) / 8).astype(np.float32))
+    mtx, txt = str(tmp_path / "g.mtx"), str(tmp_path / "g.txt")
+    gio.save_mtx(g, mtx, weights=w)
+    gio.save_edgelist(g, txt, weights=w)
+    # the .mtx last: its graph keeps rmat's node count for the runs (an
+    # edge list holds the nodes up to the largest id with an edge)
+    for load in (lambda **kw: gio.load_edgelist(txt, weighted=True, **kw),
+                 lambda **kw: gio.load_mtx(mtx, return_weights=True, **kw)):
+        (gc, wc), (gh, wh) = load(), load(device="cpu")
+        assert gc.device.type == "cuda" and wc.device.type == "cuda"
+        for k in CSRGraph.ARRAYS:
+            assert torch.equal(getattr(gc, k).cpu(), getattr(gh, k))
+        assert torch.equal(wc.cpu(), wh)
+    srcs = [0, 7, 100, 511]
+    before = bovm.packed_push_sweep.launches
+    got = repro_torch.prepare(gc, mode="push", use_kernel=True).apsp(srcs)
+    assert bovm.packed_push_sweep.launches > before
+    want = repro_torch.prepare(gh, device="cpu", mode="push").apsp(srcs)
+    assert torch.equal(got.dist.cpu(), want.dist)
+    before = tropical.sparse_relax_sweep.launches
+    got = repro_torch.prepare(gc, weights=wc, mode="sparse",
+                              use_kernel=True).apsp(srcs, semiring="tropical")
+    assert tropical.sparse_relax_sweep.launches > before
+    want = repro_torch.prepare(gh, weights=wh, device="cpu",
+                               mode="sparse").apsp(srcs, semiring="tropical")
+    assert torch.equal(got.dist.cpu(), want.dist)
+
+
+def test_sampler_on_card_takes_a_cuda_generator(cuda):
+    """Samples on the card come from a CUDA generator (a CPU one is
+    refused), are true out-neighbours, and map draws as on the CPU."""
+    from repro_torch.graph import sampler as S
+    g = gen.rmat(9, 4, directed=True, seed=5, device="cpu")
+    gc = g.to(cuda)
+    seeds = torch.arange(0, 512, 5, dtype=torch.int32)
+    layers = S.sample_subgraph(gc, seeds, torch.Generator(
+        device=cuda).manual_seed(0), (6, 3))
+    assert all(l.device.type == "cuda" for l in layers)
+    indptr, indices = g.indptr.numpy(), g.indices.numpy()
+    for h in range(2):
+        par = layers[h].cpu().numpy()
+        kids = layers[h + 1].cpu().numpy().reshape(len(par), -1)
+        for p, row in zip(par, kids):
+            nbrs = indices[indptr[p]:indptr[p + 1]]
+            assert (np.isin(row, nbrs) if len(nbrs) else row == p).all()
+    with pytest.raises(RuntimeError):
+        S.sample_hop(gc, seeds, torch.Generator(), 4)
+    r = torch.randint(0, 2 ** 31 - 1, (len(seeds), 4), dtype=torch.int32)
+    assert torch.equal(S._hop_from_draws(gc, seeds.to(cuda), r.to(cuda))
+                       .cpu(), S._hop_from_draws(g, seeds, r))

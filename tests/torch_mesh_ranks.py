@@ -1,4 +1,7 @@
-"""Worlds of gloo ranks for the sharded executor's CPU tests.
+"""Worlds of gloo ranks for the CPU tests of the sharded executor
+(suite ``executor``) and of the training substrate's mesh placement
+(suite ``train``: ``shard_batch``, ``make_jitted_step``,
+``make_cross_pod_psum``).
 
 ``start(suite, world, tmp_path)`` launches ``world`` subprocesses of this
 file, one per rank, each of which joins a gloo process group through a
@@ -362,7 +365,139 @@ def suite_executor(world: int, rank: int, out: pathlib.Path) -> dict:
     return res
 
 
-SUITES = {"executor": suite_executor}
+# -- the training substrate (suite "train", 4 ranks) ------------------------
+
+LM = dict(vocab=32, d=8, layers=2, batch=8, seq=16)
+TRAIN_STEPS = 3
+
+
+def lm_params(seed: int = 0) -> dict:
+    """The small LM's params as float32 numpy: an embedding, a stacked
+    (layers, d, d) leaf, an output matrix and a bias."""
+    rng = np.random.default_rng(seed)
+    v, d, n_l = LM["vocab"], LM["d"], LM["layers"]
+    return {"emb": (rng.normal(size=(v, d)) * 0.5).astype(np.float32),
+            "stack": (rng.normal(size=(n_l, d, d)) / np.sqrt(d))
+            .astype(np.float32),
+            "out": (rng.normal(size=(d, v)) * 0.5).astype(np.float32),
+            "bias": np.zeros(v, np.float32)}
+
+
+def lm_loss(params, batch):
+    """Mean next-token cross entropy of a residual tanh stack (torch)."""
+    import torch
+    h = params["emb"][batch["tokens"].long()]
+    for i in range(params["stack"].shape[0]):
+        h = torch.tanh(h @ params["stack"][i]) + h
+    logits = h @ params["out"] + params["bias"]
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, batch["labels"].long()[..., None]).mean()
+
+
+def psum_input(rank: int) -> np.ndarray:
+    return (np.random.default_rng(rank).normal(size=(5, 7)) * (rank + 1)) \
+        .astype(np.float32)
+
+
+def train_specs():
+    """(param_specs, batch_specs) of the jitted step on a (2, 2)
+    ``(data, model)`` mesh."""
+    from repro_torch.launch.mesh import PartitionSpec as P
+    return ({"emb": P("data", None), "stack": P(None, "data", "model"),
+             "out": P(None, "model"), "bias": P()},
+            {"tokens": P("data"), "labels": P(("data", "model"))})
+
+
+def suite_train(world: int, rank: int, out: pathlib.Path) -> dict:
+    """``shard_batch``, ``make_jitted_step`` (AdamW and Adafactor) and
+    ``make_cross_pod_psum`` (int8 and none) on meshes of 4 ranks."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.data import pipeline as PL
+    from repro_torch.data.tokens import lm_batch
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.mesh import PartitionSpec as P
+    from repro_torch.train import compression as CP
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_loop import make_jitted_step
+
+    res = {}
+    dm = M.make_mesh((2, 2), ("data", "model"), device="cpu")
+    pm = M.make_mesh((2, 2), ("pod", "data"), device="cpu")
+    res["coord"] = np.asarray(dm.get_coordinate(), np.int64)
+
+    # -- shard_batch: local shards and the whole tensors ---------------------
+    batch = lm_batch(0, global_batch=LM["batch"], seq_len=LM["seq"],
+                     vocab=LM["vocab"])
+    specs = {"tokens": P("data"), "labels": P(None, "model")}
+    got = PL.shard_batch(dm, batch, specs)
+    for k, v in got.items():
+        assert isinstance(v, DTensor)
+        res[f"shard.{k}.local"] = v.to_local().numpy()
+        res[f"shard.{k}.full"] = v.full_tensor().numpy()
+    both = PL.shard_batch(dm, {"x": np.arange(16, dtype=np.int32)},
+                          {"x": P(("data", "model"))})["x"]
+    res["shard.both.local"] = both.to_local().numpy()
+    raised = []
+    for bad in (P("pod"), P("data", "data"), P(("model", "data")),
+                P(None, None, "data")):
+        try:
+            PL.shard_batch(dm, {"t": batch["tokens"]}, {"t": bad})
+            raised.append(0)
+        except ValueError:
+            raised.append(1)
+    res["shard.raised"] = np.asarray(raised, np.int64)
+
+    # -- make_jitted_step: AdamW and Adafactor over TRAIN_STEPS batches ------
+    param_specs, batch_specs = train_specs()
+    for name, opt in (("adamw", O.adamw(
+            peak_lr=1e-2, schedule=O.cosine_schedule(1e-2, warmup=1,
+                                                     total=10))),
+                      ("adafactor", O.adafactor(peak_lr=1e-2))):
+        step, state_specs = make_jitted_step(
+            lm_loss, opt, dm, param_specs, batch_specs=batch_specs,
+            accum=2)
+        params = {k: torch.from_numpy(v) for k, v in lm_params().items()}
+        state = opt.init(params)
+        for i in range(TRAIN_STEPS):
+            b = PL.shard_batch(dm, lm_batch(
+                i, global_batch=LM["batch"], seq_len=LM["seq"],
+                vocab=LM["vocab"]), batch_specs)
+            params, state, metrics = step(params, state, b)
+            res[f"jit.{name}.loss.{i}"] = metrics["loss"].numpy()
+        for k, v in params.items():
+            assert isinstance(v, DTensor)
+            res[f"jit.{name}.param.{k}"] = v.full_tensor().numpy()
+            res[f"jit.{name}.local.{k}"] = v.to_local().numpy()
+        if name == "adafactor":
+            st = state["stats"]["stack"]
+            res["jit.adafactor.vr.local"] = st["vr"].to_local().numpy()
+            res["jit.adafactor.vr.placements"] = np.asarray(
+                [str(p) for p in st["vr"].placements])
+        # an input laid out otherwise is refused
+        wrong = dict(params, emb=PL.place(dm, params["emb"].full_tensor(),
+                                          P(None, "model")))
+        try:
+            step(wrong, state, b)
+            res[f"jit.{name}.wrong_layout_raised"] = np.int64(0)
+        except ValueError:
+            res[f"jit.{name}.wrong_layout_raised"] = np.int64(1)
+
+    # -- make_cross_pod_psum over the (pod, data) mesh's pod groups ----------
+    g = torch.from_numpy(psum_input(rank))
+    res["psum.int8"] = CP.make_cross_pod_psum("int8", mesh=pm)(g).numpy()
+    res["psum.none"] = CP.make_cross_pod_psum("none", mesh=pm)(g).numpy()
+    try:
+        CP.make_cross_pod_psum("int8", mesh=dm)
+        res["psum.no_pod_raised"] = np.int64(0)
+    except ValueError:
+        res["psum.no_pod_raised"] = np.int64(1)
+    dist.barrier()
+    return res
+
+
+SUITES = {"executor": suite_executor, "train": suite_train}
 
 
 def _rank_main(suite: str, world: int, rank: int, store: str,
