@@ -130,9 +130,16 @@ card: AdamW, Adafactor and SGD make the loss fall, ``accum=4`` equals
 restored and resumed equals the unbroken run bit for bit, int8 / top-k
 compression equals the CPU bit for bit, and ``shard_batch``,
 ``make_jitted_step`` and ``make_cross_pod_psum`` run on a world-size-1
-NCCL ``(pod, data, model)`` mesh.  The launch counts are set to 0 before
-each of these eight paths and read after; the io path must launch K1,
-K2, K3, K7 and K9.
+NCCL ``(pod, data, model)`` mesh.  Last, phase ``examples``: the
+user examples, each ``examples/torch_*.py``'s ``main`` called in this
+process on the card, its printed lines captured and its own asserts
+held: the quickstart, the APSP engine with the serving loop, the
+analytics driver at its default and at ``--scale 16 --sources 1024``
+(rmat16's size), and the two mesh examples at world size 1 in one NCCL
+group opened here, which they reuse (``torch_distributed_dawn`` pins
+push and dense: K1 and K7 must launch).  The launch counts are set to 0
+before each of these nine paths and read after; the io path must launch
+K1, K2, K3, K7 and K9.
 Each kernel line carries its launches on every path
 (``launches_by_path``) and their sum (``launches``).
 One JSON line per phase; the last line is
@@ -213,6 +220,16 @@ TRAIN_SEQ = 64               # sequence length,
 TRAIN_STEPS = 20             # and steps per optimizer
 TRAIN_RTOL = 1e-5            # accum=4 against accum=1 (float32 sums of
 TRAIN_ATOL = 1e-6            # four microbatches in another order)
+
+# the user examples (the examples phase), each main() as a user runs it,
+# on the card: graph_analytics also at rmat16's size
+EXAMPLES = (("torch_quickstart", ()), ("torch_apsp_engine", ()),
+            ("torch_graph_analytics", ()),
+            ("torch_graph_analytics", ("--scale", "16", "--sources",
+                                       "1024")),
+            ("torch_distributed_dawn", ()), ("torch_resumable_job", ()))
+MESH_EXAMPLES = ("torch_distributed_dawn", "torch_resumable_job")
+
 # float32 running sum of degrees over <= ~1,000 per-sweep partial sums,
 # each a tree reduction of < 2^24-exact terms: relative error stays
 # below (1,000 + 24) * 2^-24 ~ 6.1e-5
@@ -2227,6 +2244,52 @@ def train_run(torch, smi):
         shutil.rmtree(nccl_dir, ignore_errors=True)
 
 
+def examples_run(torch, all_kernels):
+    """Each of ``EXAMPLES``: the script's ``main(argv)`` called in this
+    process on the card, its printed lines captured; a failed assert in
+    an example raises here.  The mesh examples run at world size 1 in one
+    NCCL group made here, which their ``make_mesh`` reuses."""
+    import contextlib
+    import datetime
+    import importlib.util
+    import io
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    folder = ROOT / "examples"
+    sys.path.insert(0, str(folder))
+    nccl_dir = None
+    try:
+        for name, argv in EXAMPLES:
+            if name in MESH_EXAMPLES and nccl_dir is None:
+                nccl_dir = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+                dist.init_process_group(
+                    "nccl", init_method=f"file://{nccl_dir}/store", rank=0,
+                    world_size=1, timeout=datetime.timedelta(seconds=300))
+            spec = importlib.util.spec_from_file_location(
+                name, folder / f"{name}.py")
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            before = launch_counts(all_kernels)
+            out = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                mod.main(list(argv))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            printed = out.getvalue().splitlines()
+            yield dict(example=name, argv=list(argv), seconds=wall,
+                       launches=launched_since(all_kernels, before),
+                       last_line=printed[-1], printed=printed)
+            torch.cuda.empty_cache()
+    finally:
+        if nccl_dir is not None:
+            dist.destroy_process_group()
+            shutil.rmtree(nccl_dir, ignore_errors=True)
+        sys.path.remove(str(folder))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3456,6 +3519,23 @@ def main() -> int:
     emit(phase="train_path",
          launches=path_launches("train", before, zeros=True),
          seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+
+    # -- the user examples: examples/torch_*.py's main() on the card (K1
+    # and K7 certain: distributed_dawn pins push and dense) ---------------
+    for mod in (bovm, counting, tropical):
+        mod.reset_launches()
+    before = [0] * len(all_kernels)
+    t0 = time.perf_counter()
+    for fields in examples_run(torch, all_kernels):
+        emit(phase="examples", nvidia_smi=smi, **fields)
+    got = path_launches("examples", before, zeros=True)
+    emit(phase="examples_path", launches=got,
+         seconds=time.perf_counter() - t0)
+    for name in ("packed_push_sweep", "fused_minplus_sweep"):
+        if got[name] < 1:
+            raise AssertionError(f"{name} never launched on the examples "
+                                 f"path")
     torch.cuda.empty_cache()
 
     # launches of the comparisons above do not count: report those of the

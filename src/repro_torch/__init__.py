@@ -23,6 +23,8 @@ bucketed micro-batching) answers ``GraphQuery`` requests:
     done = svc.drain_completed()
 
 Everything runs on the card unless the caller passes ``device="cpu"``.
+``__all__`` is the JAX package's (``tests/test_torch_surface.py`` holds
+it); the serving, job and plan types imported here are conveniences.
 """
 from .api import DawnGraph, SEMIRING_NAMES, prepare
 from .core.incremental import (IncrementalSSSP, IncrementalState,
@@ -39,20 +41,13 @@ __version__ = "0.1.0"
 __all__ = [
     "CSRGraph",
     "DawnGraph",
-    "DistanceOracle",
     "DynamicCSRGraph",
-    "GraphQuery",
-    "GraphService",
     "IncrementalSSSP",
     "IncrementalState",
-    "JobMismatchError",
-    "JobResult",
     "RepairResult",
     "SEMIRING_NAMES",
     "SweepOptions",
-    "TuningPlan",
     "prepare",
     "repair",
-    "run_sweep_job",
     "sssp_state",
 ]

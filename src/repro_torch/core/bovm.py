@@ -9,7 +9,9 @@ sweep computes
     new    = hits & ~visited          # Theorem 3.2 skip
     dist   = where(new, step, dist)   # first hit IS the shortest path
 
-Values are exact: counts <= n < 2^24, so the f32 product is lossless.
+Values are exact: counts <= n < 2^24, so the f32 product is lossless;
+``accum_dtype`` picks another accumulator (float16, bfloat16, int32: the
+same booleans; narrower integers wrap and are refused).
 
 ``bovm_msbfs`` pins the dense PUSH form of
 :func:`repro_torch.core.sweep.boolean_forms` into
@@ -36,24 +38,27 @@ class DawnState(NamedTuple):
 
 
 def bovm_sweep(adj: torch.Tensor, frontier: torch.Tensor,
-               visited: torch.Tensor, *,
+               visited: torch.Tensor, *, accum_dtype=torch.float32,
                matmul_fn: Optional[Callable] = None) -> torch.Tensor:
     """One boolean sweep: new = (frontier @ adj > 0) & ~visited.
 
     adj      : (n, n) int8/bool dense adjacency (row = src, col = dst)
     frontier : (S, n) bool
     visited  : (S, n) bool
+    accum_dtype: the product's accumulator (``sweep.resolve_accum_dtype``)
     matmul_fn: optional override ``(frontier, adj) -> counts``.
     """
     if matmul_fn is None:
-        counts = frontier.to(torch.float32) @ adj.to(torch.float32)
+        counts = S.count_hits(frontier, adj,
+                              S.resolve_accum_dtype(accum_dtype))
     else:
         counts = matmul_fn(frontier, adj)
     return (counts > 0) & ~visited
 
 
 def bovm_msbfs(adj: torch.Tensor, sources, *,
-               max_steps: Optional[int] = None) -> DawnState:
+               max_steps: Optional[int] = None,
+               accum_dtype=torch.float32) -> DawnState:
     """Multi-source DAWN over a dense adjacency.
 
     adj     : (n, n) int8 dense adjacency
@@ -73,7 +78,7 @@ def bovm_msbfs(adj: torch.Tensor, sources, *,
     # dense boolean PUSH only: the pull/sparse operands are never read
     dummy = torch.zeros(1, dtype=torch.int32, device=dev)
     push, _, _ = S.boolean_forms(adj, None, dummy, dummy, n_pad=n, s=s,
-                                 use_kernel=False)
+                                 use_kernel=False, accum_dtype=accum_dtype)
     st = S.sweep_loop((push,), S.make_state(f0, dist0, n_forms=1),
                       max_steps=max_steps, deg=deg)
     return DawnState(frontier=st.frontier, dist=st.dist, step=st.step,

@@ -595,7 +595,8 @@ def _forms(ops: ShardedOperands, comm: _Mesh, s_l: int, n_real: int):
             d = st.dist[0] if counting else st.dist
             stats = frontier_stats(
                 st.frontier, d, bs=bs, bn=128, bk=128,
-                unreached=torch.isinf(d) if tropical else None)
+                unreached=S.TROPICAL.unreached_mask(d) if tropical
+                else None)
             # the form must agree on every rank, or the collectives inside
             # the forms deadlock: the mean over the data shards, summed in
             # float32 in shard order (the JAX executor's pmean)

@@ -63,6 +63,13 @@ class Semiring:
     source_dist: Any
     unit: str
 
+    def unreached_mask(self, dist: torch.Tensor) -> torch.Tensor:
+        """Boolean mask of not-yet-settled entries (the Thm 3.2 skip set
+        and the pull/push occupancy signal)."""
+        if self.name == "tropical":
+            return torch.isinf(dist)
+        return dist == self.unreached
+
 
 BOOLEAN = Semiring("boolean", torch.int32, UNREACHED, 0,
                    unit="dense MAC / packed word / CSR lane")
@@ -81,7 +88,7 @@ MIN_LABEL = Semiring("min_label", torch.int32, None, None,
 
 SEMIRINGS = {s.name: s for s in (BOOLEAN, TROPICAL, MIN_LABEL, COUNTING)}
 
-_INF = float("inf")
+INF = float("inf")
 
 
 # --------------------------------------------------------------------------
@@ -265,6 +272,43 @@ def _pull_kernel_wk(words: int) -> int:
     return words
 
 
+# the accumulators the reference dense push may count in: its terms are
+# 0 or 1, so each gives the same booleans (a float16 or bfloat16 count
+# that saturates at inf is still > 0)
+_ACCUM_DTYPES = {"float32": torch.float32, "float16": torch.float16,
+                 "bfloat16": torch.bfloat16, "int32": torch.int32}
+
+
+def resolve_accum_dtype(accum_dtype) -> torch.dtype:
+    """The dtype the reference dense push counts frontier in-neighbours
+    in: a torch dtype or its name (``"bfloat16"``, the JAX spelling).
+
+    Integer types narrower than 32 bits are refused: their sums wrap, so
+    a node whose count reaches 128 (int8) sums to 0 or below and is
+    missed, which the JAX package's push does silently."""
+    name = accum_dtype if isinstance(accum_dtype, str) \
+        else str(accum_dtype).rpartition(".")[2]
+    if name in ("int8", "uint8", "int16"):
+        raise ValueError(
+            f"accum_dtype {name} wraps: a count of frontier in-neighbours "
+            f"past its range sums to 0 or below (in int8, 128 to -128 and "
+            f"256 to 0) and the node is missed; count in "
+            f"{', '.join(_ACCUM_DTYPES)}")
+    if name not in _ACCUM_DTYPES:
+        raise ValueError(f"accum_dtype must be one of "
+                         f"{', '.join(_ACCUM_DTYPES)}, not {accum_dtype!r}")
+    return _ACCUM_DTYPES[name]
+
+
+def count_hits(f: torch.Tensor, adj: torch.Tensor,
+               acc: torch.dtype) -> torch.Tensor:
+    """``f @ adj`` counted in ``acc``.  The card has no integer matmul, so
+    int32 counts in float32 there: the booleans ``> 0`` are the same."""
+    if acc == torch.int32 and f.is_cuda:
+        acc = torch.float32
+    return f.to(acc) @ adj.to(acc)
+
+
 def _discover(hits: torch.Tensor, d: torch.Tensor, step: int):
     new = hits & (d == UNREACHED)
     return new.to(torch.int8), torch.where(
@@ -274,7 +318,8 @@ def _discover(hits: torch.Tensor, d: torch.Tensor, step: int):
 def boolean_forms(adj, adj_pull, src_idx, dst_idx, *, n_pad: int, s: int,
                   bn: int = 128, bk: int = 128, pull_chunk: int = 512,
                   use_kernel: bool = False, track_parent: bool = False,
-                  index=None) -> Tuple[SweepForm, ...]:
+                  index=None, accum_dtype=torch.float32
+                  ) -> Tuple[SweepForm, ...]:
     """(push, pull, sparse) boolean sweep forms over identical state.
 
     ``adj``/``adj_pull`` may be ``None`` when the caller has resolved a
@@ -288,9 +333,12 @@ def boolean_forms(adj, adj_pull, src_idx, dst_idx, *, n_pad: int, s: int,
     directions read the bit-packed ``adj_pull`` operand through
     ``index``, its live-word index (``PreparedGraph.adj_pull_index``;
     ``None``: each launch on the card builds it).  The reference
-    push is an f32 product with the dense ``adj`` (exact: counts stay
-    below 2^24), chunked over destination columns like the pull.
+    push is a product with the dense ``adj`` in ``accum_dtype`` (see
+    :func:`resolve_accum_dtype`; float32 is exact while counts stay below
+    2^24), chunked over destination columns like the pull.  The kernels
+    read packed words and ignore it.
     """
+    acc = resolve_accum_dtype(accum_dtype)
     bs = min(s, 128)
     chunk = _pull_chunk_size(n_pad, pull_chunk)
     wk = _pull_kernel_wk(max(n_pad // 32, 1))
@@ -312,9 +360,9 @@ def boolean_forms(adj, adj_pull, src_idx, dst_idx, *, n_pad: int, s: int,
             return new, dist, p
     else:
         def push(f, d, p, step):
-            ff = f.to(torch.float32)
+            ff = f.to(acc)                   # once, not once per chunk
             counts = torch.cat(
-                [ff @ adj[:, j0: j0 + chunk].to(torch.float32)
+                [count_hits(ff, adj[:, j0: j0 + chunk], acc)
                  for j0 in range(0, n_pad, chunk)], dim=-1)
             new, dist = _discover(counts > 0, d, step)
             return new, dist, p
@@ -505,7 +553,7 @@ def tropical_forms(wdense, src_idx, dst_idx, w_edges, *, n_pad: int = 0,
         if use_frontier:
             f_t = f.reshape(-1, shape[-1]).t()
             cand = torch.where(f_t[src_l] != 0, cand,
-                               torch.full((), _INF, device=d.device))
+                               torch.full((), INF, device=d.device))
         nd = d_t.clone(memory_format=torch.contiguous_format)
         nd.index_reduce_(0, dst_l, cand, "amin")
         nd = nd.t().contiguous().reshape(shape)
@@ -513,7 +561,7 @@ def tropical_forms(wdense, src_idx, dst_idx, w_edges, *, n_pad: int = 0,
         return new.to(torch.int8), nd, p
 
     def masked(f, d):
-        return torch.where(f != 0, d, torch.full((), _INF, device=d.device))
+        return torch.where(f != 0, d, torch.full((), INF, device=d.device))
 
     if use_kernel:
         if not use_frontier:
@@ -588,7 +636,7 @@ def derive_parents(g, dist: torch.Tensor, *, weights=None) -> torch.Tensor:
     else:
         w = torch.as_tensor(weights, dtype=torch.float32,
                             device=dist.device)
-        w = torch.where(g.src < n, w, torch.full((), _INF,
+        w = torch.where(g.src < n, w, torch.full((), INF,
                                                  device=dist.device))
         ok = torch.isfinite(du) & (dv == du + w[:, None])
     cand = torch.where(ok, g.src[:, None], torch.tensor(

@@ -264,8 +264,9 @@ def _run_weighted_batch(wdense, src_idx, dst_idx, w_edges, deg,
                                 dtype=torch.float32, device=dev)
 
         def choose(st: S.SweepState) -> int:
-            stats = frontier_stats(st.frontier, st.dist, bs=bs, bn=128,
-                                   bk=128, unreached=torch.isinf(st.dist))
+            stats = frontier_stats(
+                st.frontier, st.dist, bs=bs, bn=128, bk=128,
+                unreached=S.TROPICAL.unreached_mask(st.dist))
             return int(dense_w * stats.live_tile_frac > sparse_c)
 
     fused = None

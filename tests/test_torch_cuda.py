@@ -3,7 +3,8 @@ the boolean, counting and tropical engines' kernel paths and incremental
 repair (K9 resuming each repair), the serving tier (K1 and K9 flushes)
 and a checkpointed job killed and resumed, on the card against the CPU;
 the sharded executor on NCCL at world size 1, and the kernels on the
-K-row blocks that ranks of a vertex-sharded mesh run.
+K-row blocks that ranks of a vertex-sharded mesh run; the reference
+dense push's ``accum_dtype`` on the card.
 Needs an NVIDIA GPU and nvcc; without CUDA every test here skips.
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -239,6 +240,21 @@ def test_int8_kernel_matches_plain(cuda, s, n, bs, bn, bk, kind):
     with pytest.raises(ValueError, match="bs % 8"):
         bovm.fused_sweep(f.to(cuda), adj.to(cuda), d.to(cuda), 6, bs=4,
                          bn=bn, bk=bk)
+
+
+@pytest.mark.parametrize("accum", ["float32", "float16", "bfloat16",
+                                   "int32"])
+def test_bovm_msbfs_accum_dtype_on_card_matches_cpu(cuda, accum):
+    """The reference dense push on the card in each accumulator (int32
+    counts in float32 there: the card has no integer matmul)."""
+    from repro_torch.core import bovm_msbfs
+    g = gen.rmat(9, 8, directed=False, seed=2, device="cpu")
+    adj = g.to_dense()
+    want = bovm_msbfs(adj, [0, 7, 300], accum_dtype=accum)
+    got = bovm_msbfs(adj.to(cuda), [0, 7, 300], accum_dtype=accum)
+    assert torch.equal(want.dist, got.dist.cpu())
+    assert (want.step, float(want.edges_touched)) == \
+        (got.step, float(got.edges_touched))
 
 
 @pytest.mark.parametrize("opts", [dict(), dict(mode="push"),
