@@ -1,0 +1,161 @@
+"""The one closed-loop traffic generator every mix is read by.
+
+A mix (``bench/traffic/<mix>.json``) names the query (``apsp`` or
+``sssp``), the sources per call, the pool of search keys the calls
+cycle through and the rows of each call the check compares; a key it
+does not know is refused.  The pool is drawn uniformly from the vertices
+of degree 1 or more (Graph500's rule for search keys); the run's seed
+orders it (:class:`Plan`) and draws the compared rows.  Every mix runs
+closed loop: each call is issued when the last one has returned, so its
+issue time is its due time; its latency runs from issue to completion
+(:func:`timer`).  The window takes every call started inside
+``seconds`` and closes when the last one completes.  The compared rows
+are copied to the host, so the card holds only what the system holds.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+QUERIES = ("apsp", "sssp")
+MIX_KEYS = {"query", "sources_per_call", "key_pool", "check_rows_per_call",
+            "why"}
+
+
+@dataclasses.dataclass
+class Call:
+    sources: np.ndarray          # (k,) int64
+    wall_s: float
+    counters: dict
+    rows: np.ndarray             # indices of the compared rows
+    kept: Optional[torch.Tensor]  # those rows as returned, on the host
+    traced: bool
+    error: Optional[str] = None
+
+
+@dataclasses.dataclass
+class Window:
+    calls: List[Call]
+    elapsed_s: float
+
+
+class Plan:
+    """The calls of one run.  The mix's ``key_pool`` search keys are drawn
+    once per graph (from ``pool_seed``); each run's ``seed`` deals them
+    out in an order of its own, a fresh permutation of the whole pool each
+    round, so every seed asks for the same work in another order."""
+
+    def __init__(self, mix: dict, degree: torch.Tensor, seed: int,
+                 pool_seed: int):
+        unknown = set(mix) - MIX_KEYS
+        if unknown:
+            raise ValueError(f"unknown mix keys {sorted(unknown)}: "
+                             f"{sorted(MIX_KEYS)}")
+        if mix["query"] not in QUERIES:
+            raise ValueError(f"unknown query {mix['query']!r}: {QUERIES}")
+        self.query = mix["query"]
+        self.k = 1 if self.query == "sssp" else mix["sources_per_call"]
+        self.check = min(self.k, mix["check_rows_per_call"])
+        self.n = degree.numel()
+        keys = torch.nonzero(degree >= 1).reshape(-1).cpu().numpy()
+        size = mix["key_pool"]
+        if size % self.k or size > keys.size:
+            raise ValueError(f"key_pool {size} must be a multiple of "
+                             f"{self.k} and at most {keys.size}")
+        self.pool = np.random.default_rng([pool_seed, 7]).choice(
+            keys, size=size, replace=False)
+        self.rng = np.random.default_rng([seed, 1])
+        self.check_rng = np.random.default_rng([seed, 2])
+        self._dealt = np.empty(0, np.int64)
+
+    def sources(self) -> np.ndarray:
+        if self._dealt.size == 0:
+            self._dealt = self.rng.permutation(self.pool)
+        out, self._dealt = self._dealt[: self.k], self._dealt[self.k:]
+        return out
+
+    def rows(self) -> np.ndarray:
+        return np.sort(self.check_rng.choice(self.k, size=self.check,
+                                             replace=False))
+
+
+def issue(system, query: str, sources: np.ndarray):
+    if query == "sssp":
+        return system.sssp(int(sources[0]))
+    return system.apsp(sources)
+
+
+def timer(device: torch.device) -> Callable[[Callable], tuple]:
+    """``timed(fn) -> (fn(), seconds)``: from issue to completion, by the
+    host clock around the call and, on the card, a device synchronize
+    after it."""
+    if device.type == "cuda":
+        def done():
+            torch.cuda.synchronize(device)
+    else:
+        def done():
+            pass
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        done()
+        return out, time.perf_counter() - t0
+    return timed
+
+
+def keep_rows(out: torch.Tensor, rows: np.ndarray) -> torch.Tensor:
+    """``out[rows]`` on the host, copied row by row: no tensor of the
+    harness's is made on the card."""
+    kept = torch.empty((len(rows), out.shape[1]), dtype=out.dtype)
+    for j, r in enumerate(rows.tolist()):
+        kept[j].copy_(out[r])
+    return kept
+
+
+def run(system, plan: Plan, seconds: float, device: torch.device,
+        capture=None, trace_seconds: float = 0.0) -> Window:
+    """The measured window.  With ``capture`` (a started
+    :class:`bench.devtrace.Capture`) the calls that start within its
+    first ``trace_seconds`` are traced; the capture is stopped after the
+    last of them and its summary set on ``capture.summary``."""
+    timed = timer(device)
+    calls: List[Call] = []
+    t_start = time.perf_counter()
+    t_end = t_start
+    while True:
+        t0 = time.perf_counter()
+        if t0 - t_start >= seconds:
+            break
+        srcs = plan.sources()
+        traced = capture is not None and capture.active and \
+            t0 - t_start < trace_seconds
+        if capture is not None and capture.active and not traced:
+            capture.summary = capture.stop()
+        error, out, counters = None, None, {}
+        try:
+            with capture.span() if traced else contextlib.nullcontext():
+                (out, counters), wall = timed(
+                    lambda: issue(system, plan.query, srcs))
+        except Exception as exc:       # a failed call is counted, not fatal
+            error = f"{type(exc).__name__}: {exc}"
+            wall = time.perf_counter() - t0
+        t_end = time.perf_counter()
+        rows = plan.rows()
+        kept = None
+        if out is not None:
+            if tuple(out.shape) == (len(srcs), plan.n):
+                kept = keep_rows(out, rows)
+            else:
+                error = f"rows {tuple(out.shape)} for {len(srcs)} sources"
+        calls.append(Call(srcs, wall, counters, rows, kept, traced,
+                          error))
+        del out
+    if capture is not None and capture.active:
+        capture.summary = capture.stop()
+    return Window(calls, t_end - t_start)
