@@ -38,6 +38,7 @@ from typing import Optional, Sequence, Union
 
 import torch
 
+from . import trace
 from .core.autotune import TuningPlan, build_plan
 from .core.centrality import MEASURES, CentralityConfig, CentralityResult
 from .core.centrality import centrality as _centrality
@@ -200,30 +201,31 @@ class DawnGraph:
         :class:`repro_torch.core.jobs.JobResult` (host arrays plus the
         resume counters)."""
         self._check_semiring(semiring)
-        if checkpoint_dir is not None or on_chunk is not None:
-            return run_sweep_job(
-                self.graph, sources, workload=semiring,
-                weights=self._lane_weights()
-                if semiring == "tropical" else None,
-                mesh=mesh, options=self.options, chunk_size=chunk_size,
-                checkpoint_dir=checkpoint_dir,
-                checkpoint_interval=checkpoint_interval, resume=resume,
-                on_chunk=on_chunk, device=self.device)
-        if mesh is not None:
-            # the config is baked into the prepared operands
-            return _sharded_apsp(self._sharded_operands(semiring, mesh),
-                                 sources)
-        if semiring == "tropical":
-            return _weighted_apsp(self.prepared_weighted(), sources=sources,
-                                  config=self.options.to(WeightedConfig,
-                                                         lenient=True))
-        if semiring == "counting":
-            return _counting_apsp(self.prepared(), sources,
-                                  config=self.options.to(CentralityConfig,
-                                                         lenient=True))
-        return _apsp_engine(self.prepared(), sources,
-                            config=self.options.to(EngineConfig,
-                                                   lenient=True))
+        with trace.span("dawn.apsp"):
+            if checkpoint_dir is not None or on_chunk is not None:
+                return run_sweep_job(
+                    self.graph, sources, workload=semiring,
+                    weights=self._lane_weights()
+                    if semiring == "tropical" else None,
+                    mesh=mesh, options=self.options, chunk_size=chunk_size,
+                    checkpoint_dir=checkpoint_dir,
+                    checkpoint_interval=checkpoint_interval, resume=resume,
+                    on_chunk=on_chunk, device=self.device)
+            if mesh is not None:
+                # the config is baked into the prepared operands
+                return _sharded_apsp(self._sharded_operands(semiring, mesh),
+                                     sources)
+            if semiring == "tropical":
+                return _weighted_apsp(
+                    self.prepared_weighted(), sources=sources,
+                    config=self.options.to(WeightedConfig, lenient=True))
+            if semiring == "counting":
+                return _counting_apsp(
+                    self.prepared(), sources,
+                    config=self.options.to(CentralityConfig, lenient=True))
+            return _apsp_engine(
+                self.prepared(), sources,
+                config=self.options.to(EngineConfig, lenient=True))
 
     def sssp(self, source: int, *, semiring: str = "boolean",
              mesh=None) -> torch.Tensor:

@@ -34,6 +34,7 @@ from typing import Iterator, NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .. import trace
 from ..graph.csr import CSRGraph, resolve_device
 from ..kernels import common as kernel_common
 from ..kernels import registry as kernel_registry
@@ -121,11 +122,38 @@ class PreparedGraph:
     def device(self) -> torch.device:
         return self.deg.device
 
+    def _build(self, attr: str, name: str, make) -> None:
+        """Set the lazy operand ``attr`` to ``make()`` inside its set-up
+        span (waiting for the card there, so the span holds the build),
+        then update the gauge."""
+        with trace.setup_span(name):
+            setattr(self, attr, make())
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        self._gauge()
+
+    def _gauge(self) -> None:
+        """Set ``dawn.operand_bytes`` to the bytes held by the operands
+        built so far: the CSR arrays, ``deg``, the dense and packed
+        operands and their indexes (each storage once)."""
+        tensors = [getattr(self.graph, k) for k in CSRGraph.ARRAYS]
+        tensors += [self.deg, self._adj, self._adj_pull]
+        for ix in (self._adj_index, self._adj_pull_index):
+            if ix is not None:
+                tensors += [ix.offsets, ix.words, ix.values]
+        held = {}
+        for t in tensors:
+            if t is not None:
+                st = t.untyped_storage()
+                held[st.data_ptr()] = st.nbytes()
+        trace.gauge("dawn.operand_bytes", sum(held.values()))
+
     @property
     def adj(self) -> torch.Tensor:
         """(n_pad, n_pad) int8 dense adjacency (reference push operand)."""
         if self._adj is None:
-            self._adj = self.graph.to_dense_padded(self.n_pad)
+            self._build("_adj", "dawn.operand.dense",
+                        lambda: self.graph.to_dense_padded(self.n_pad))
         return self._adj
 
     @property
@@ -135,15 +163,18 @@ class PreparedGraph:
         Built once, from the operand, by the counting kernel set's
         builder; it is not rebuilt if ``adj`` is changed in place."""
         if self._adj_index is None:
-            self._adj_index = kernel_registry.get("counting") \
-                .operand_index(self.adj)
+            adj = self.adj
+            self._build(
+                "_adj_index", "dawn.operand.dense_index",
+                lambda: kernel_registry.get("counting").operand_index(adj))
         return self._adj_index
 
     @property
     def adj_pull(self) -> torch.Tensor:
         """(n_pad, n_pad/32) packed in-neighbour words (kernel operand)."""
         if self._adj_pull is None:
-            self._adj_pull = self.graph.to_pull_packed(self.n_pad)
+            self._build("_adj_pull", "dawn.operand.pull_packed",
+                        lambda: self.graph.to_pull_packed(self.n_pad))
         return self._adj_pull
 
     @property
@@ -154,8 +185,10 @@ class PreparedGraph:
         operand, by the boolean kernel set's builder; it is not rebuilt if
         ``adj_pull`` is changed in place."""
         if self._adj_pull_index is None:
-            self._adj_pull_index = kernel_registry.get("boolean") \
-                .operand_index(self.adj_pull)
+            packed = self.adj_pull
+            self._build(
+                "_adj_pull_index", "dawn.operand.pull_index",
+                lambda: kernel_registry.get("boolean").operand_index(packed))
         return self._adj_pull_index
 
 
@@ -168,15 +201,18 @@ def prepare_graph(g, *, align: int = 128, device=None) -> PreparedGraph:
     prepares its merged ``view()`` snapshot and records the content
     ``epoch``, so that callers can tell a stale prepared graph (and its
     indexes) from a current one."""
-    epoch = 0
-    if hasattr(g, "view"):            # DynamicCSRGraph duck-type
-        epoch = int(g.epoch)
-        g = g.view()
-    g = g.to(resolve_device(device))
-    n_pad = g.n_padded(align)
-    deg = torch.zeros(n_pad, dtype=torch.float32, device=g.device)
-    deg[: g.n_nodes] = g.out_degrees().to(torch.float32)
-    return PreparedGraph(graph=g, deg=deg, n_pad=n_pad, epoch=epoch)
+    with trace.setup_span("dawn.prepare"):
+        epoch = 0
+        if hasattr(g, "view"):            # DynamicCSRGraph duck-type
+            epoch = int(g.epoch)
+            g = g.view()
+        g = g.to(resolve_device(device))
+        n_pad = g.n_padded(align)
+        deg = torch.zeros(n_pad, dtype=torch.float32, device=g.device)
+        deg[: g.n_nodes] = g.out_degrees().to(torch.float32)
+        pg = PreparedGraph(graph=g, deg=deg, n_pad=n_pad, epoch=epoch)
+    pg._gauge()
+    return pg
 
 
 # --------------------------------------------------------------------------
@@ -399,12 +435,16 @@ def apsp_engine_blocks(
         valid = len(block)
         padded = np.zeros(B, np.int64)
         padded[:valid] = block
-        st = _run_batch(adj, adj_pull, graph.src, graph.dst, pg.deg,
-                        torch.from_numpy(padded).to(pg.device), valid,
-                        cfg=config, n_real=n, n_pad=pg.n_pad,
-                        max_steps=max_steps, use_kernel=use_kernel,
-                        forced_dir=forced_dir, fused_steps=fused_steps,
-                        index=index)
+        with trace.span("dawn.engine.tile"):
+            st = _run_batch(adj, adj_pull, graph.src, graph.dst, pg.deg,
+                            torch.from_numpy(padded).to(pg.device), valid,
+                            cfg=config, n_real=n, n_pad=pg.n_pad,
+                            max_steps=max_steps, use_kernel=use_kernel,
+                            forced_dir=forced_dir, fused_steps=fused_steps,
+                            index=index)
+        # tile fill: the rows a tile's sweeps ran, and the real ones
+        trace.count("dawn.tile_rows", B * st.step)
+        trace.count("dawn.tile_rows_real", valid * st.step)
         yield block, st.dist[:valid, :n], st
 
 

@@ -37,6 +37,7 @@ from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from .. import trace
 from ..kernels import common as kernel_common
 from ..kernels import registry as kernel_registry
 from .frontier import UNREACHED, pack_bits
@@ -174,33 +175,45 @@ def sweep_loop(forms: Sequence[SweepForm], state: SweepState, *,
     if fused is not None and choose is not None:
         raise ValueError("fused blocks pin one direction")
     while not st.done and st.step < max_steps:
-        if fused is not None:
-            n_run = min(fused_steps, max_steps - st.step)
-            new, dist, prod, stopped = fused(st.frontier, st.dist, st.step,
-                                             n_run)
-            if fused_combine is not None:
-                prod, stopped = fused_combine(prod, stopped)
-            prod, stopped = int(prod), bool(stopped)
-            executed = prod + 1 if stopped else n_run
-            st = st._replace(
-                frontier=new, dist=dist, step=st.step + executed,
-                done=stopped,
-                sweeps=st.step + prod if prod > 0 else st.sweeps,
-                dir_counts=_bump(st.dir_counts, forced_dir, executed))
-            continue
-        step = st.step + 1
-        idx = forced_dir if choose is None else int(choose(st))
-        new, dist, parent = forms[idx](st.frontier, st.dist, st.parent, step)
-        stop = not bool(new.any()) if converged is None \
-            else bool(converged(new))
-        touched = st.edges_touched
-        if deg is not None:
-            touched = touched + torch.sum(
-                (st.frontier != 0).to(torch.float32) * deg)
-        st = SweepState(frontier=new, dist=dist, parent=parent, step=step,
-                        done=stop, sweeps=st.sweeps if stop else step,
-                        edges_touched=touched,
-                        dir_counts=_bump(st.dir_counts, idx, 1))
+        with trace.span("dawn.sweep"):
+            if fused is not None:
+                n_run = min(fused_steps, max_steps - st.step)
+                with trace.span("dawn.sweep.fused"):
+                    new, dist, prod, stopped = fused(st.frontier, st.dist,
+                                                     st.step, n_run)
+                    if fused_combine is not None:
+                        prod, stopped = fused_combine(prod, stopped)
+                    prod, stopped = int(prod), bool(stopped)
+                executed = prod + 1 if stopped else n_run
+                trace.count("dawn.sweeps", executed)
+                st = st._replace(
+                    frontier=new, dist=dist, step=st.step + executed,
+                    done=stopped,
+                    sweeps=st.step + prod if prod > 0 else st.sweeps,
+                    dir_counts=_bump(st.dir_counts, forced_dir, executed))
+                continue
+            step = st.step + 1
+            if choose is None:
+                idx = forced_dir
+            else:
+                with trace.span("dawn.sweep.choose"):
+                    idx = int(choose(st))
+            with trace.span("dawn.sweep.form"):
+                new, dist, parent = forms[idx](st.frontier, st.dist,
+                                               st.parent, step)
+            with trace.span("dawn.sweep.converged"):
+                stop = not bool(new.any()) if converged is None \
+                    else bool(converged(new))
+            touched = st.edges_touched
+            if deg is not None:
+                touched = touched + torch.sum(
+                    (st.frontier != 0).to(torch.float32) * deg)
+            trace.count("dawn.sweeps")
+            st = SweepState(frontier=new, dist=dist, parent=parent,
+                            step=step, done=stop,
+                            sweeps=st.sweeps if stop else step,
+                            edges_touched=touched,
+                            dir_counts=_bump(st.dir_counts, idx, 1))
     return st
 
 

@@ -20,6 +20,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card.  A CUDA device without CUDA raises: the
@@ -93,47 +95,51 @@ class CSRGraph:
                    device=None) -> "CSRGraph":
         """Build from host-side COO edge arrays (numpy)."""
         dev = resolve_device(device)
-        src = np.asarray(src, dtype=np.int64)
-        dst = np.asarray(dst, dtype=np.int64)
-        if remove_self_loops:
-            keep = src != dst
-            src, dst = src[keep], dst[keep]
-        if dedup and len(src):
-            key = src * n_nodes + dst
-            _, uniq = np.unique(key, return_index=True)
-            src, dst = src[uniq], dst[uniq]
-        order = np.lexsort((dst, src))
-        src, dst = src[order], dst[order]
-        m = len(src)
-        m_pad = pad_to if pad_to is not None else \
-            max(_round_up(max(m, 1), 128), 128)
-        if m_pad < m:
-            raise ValueError(f"pad_to={m_pad} < m={m}")
+        with trace.setup_span("dawn.from_edges"):
+            src = np.asarray(src, dtype=np.int64)
+            dst = np.asarray(dst, dtype=np.int64)
+            if remove_self_loops:
+                keep = src != dst
+                src, dst = src[keep], dst[keep]
+            if dedup and len(src):
+                key = src * n_nodes + dst
+                _, uniq = np.unique(key, return_index=True)
+                src, dst = src[uniq], dst[uniq]
+            order = np.lexsort((dst, src))
+            src, dst = src[order], dst[order]
+            m = len(src)
+            m_pad = pad_to if pad_to is not None else \
+                max(_round_up(max(m, 1), 128), 128)
+            if m_pad < m:
+                raise ValueError(f"pad_to={m_pad} < m={m}")
 
-        indptr = np.zeros(n_nodes + 1, dtype=np.int32)
-        np.add.at(indptr, src + 1, 1)
-        indptr = np.cumsum(indptr).astype(np.int32)
+            indptr = np.zeros(n_nodes + 1, dtype=np.int32)
+            np.add.at(indptr, src + 1, 1)
+            indptr = np.cumsum(indptr).astype(np.int32)
 
-        # transpose (CSC) — in-edges sorted by dst
-        order_t = np.lexsort((src, dst))
-        src_t, dst_t = src[order_t], dst[order_t]
-        indptr_t = np.zeros(n_nodes + 1, dtype=np.int32)
-        np.add.at(indptr_t, dst_t + 1, 1)
-        indptr_t = np.cumsum(indptr_t).astype(np.int32)
+            # transpose (CSC) — in-edges sorted by dst
+            order_t = np.lexsort((src, dst))
+            src_t, dst_t = src[order_t], dst[order_t]
+            indptr_t = np.zeros(n_nodes + 1, dtype=np.int32)
+            np.add.at(indptr_t, dst_t + 1, 1)
+            indptr_t = np.cumsum(indptr_t).astype(np.int32)
 
-        def pad(a):
-            out = np.full(m_pad, n_nodes, dtype=np.int32)
-            out[:m] = a
-            return out
+            def pad(a):
+                out = np.full(m_pad, n_nodes, dtype=np.int32)
+                out[:m] = a
+                return out
 
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            def put(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-        return CSRGraph(
-            indptr=put(indptr), indices=put(pad(dst)), src=put(pad(src)),
-            dst=put(pad(dst)), indptr_t=put(indptr_t),
-            indices_t=put(pad(src_t)),
-            n_nodes=int(n_nodes), n_edges=int(m), m_pad=int(m_pad))
+            g = CSRGraph(
+                indptr=put(indptr), indices=put(pad(dst)), src=put(pad(src)),
+                dst=put(pad(dst)), indptr_t=put(indptr_t),
+                indices_t=put(pad(src_t)),
+                n_nodes=int(n_nodes), n_edges=int(m), m_pad=int(m_pad))
+            if dev.type == "cuda":          # the span holds the move
+                torch.cuda.synchronize(dev)
+            return g
 
     @staticmethod
     def from_weighted_edges(src: np.ndarray, dst: np.ndarray,
@@ -243,7 +249,9 @@ class CSRGraph:
         pattern.  Row ``j`` holds bit ``u % 32`` of word ``u // 32`` for
         every edge ``u -> j``: bit-identical to ``pack_bits(
         to_dense_padded(n_pad).T != 0)``, but built straight from the CSR
-        lanes, so no (n_pad, n_pad) temporary is ever materialized."""
+        lanes, with no (n_pad, n_pad) byte matrix.  The words are summed
+        in an int64 (n_pad * words) temporary, twice the size of the
+        int32 result, which exists beside it until the cast returns."""
         n = self.n_nodes
         n_pad = self.n_padded() if n_pad is None else n_pad
         if n_pad < n:
