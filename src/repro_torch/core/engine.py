@@ -4,9 +4,9 @@ The port of ``repro/core/engine.py``.  The boolean semiring has three
 equivalent sweep forms (``core/sweep.py::boolean_forms``):
 
   PUSH   — dense boolean product; on the card the bit-packed push kernel
-           whose tile-skip tables make its cost proportional to the live
-           (frontier x unreached) tile fraction.
-  PULL   — bit-packed AND/OR over in-neighbour words (paper's CSC BOVM).
+           (K1), which walks the packed operand's live-word index.
+  PULL   — bit-packed AND/OR over in-neighbour words (paper's CSC BOVM);
+           on the card K2, the same kernel sequence as K1.
   SPARSE — edge-parallel gather/scatter over CSR lanes (paper Alg. 2).
 
 This module tiles sources into batches, runs each tile through the
@@ -14,8 +14,11 @@ shared :func:`repro_torch.core.sweep.sweep_loop` driver, and picks the
 form per sweep.  Two selection regimes, as in the JAX package:
 
   dynamic (kernel path) — at every sweep, the occupancy cost model in
-    :func:`sweep_costs` chooses; its signals are the push kernel's own
-    occupancy tables.
+    :func:`sweep_costs` chooses from the push kernel's occupancy tables
+    (:func:`frontier_stats`).  Where the forms read the packed operand's
+    live-word index (the kernels on the card), push and pull are priced
+    by the index entries they walk; elsewhere (the CPU, the plain
+    versions) by the TPU kernels' dense work, as in the JAX package.
 
   calibrated (reference path) — one sweep of each form is *measured* on
     the prepared graph and the argmin direction is fixed for the batch
@@ -53,7 +56,8 @@ class EngineConfig(SweepOptions):
     Cost-model units:
       c_push   — per dense element in a live (i, j, k) push tile
       c_pull   — per packed word scanned by the pull sweep (one word
-                 covers 32 nodes)
+                 covers 32 nodes); with a live-word index, per index
+                 entry that K1 or K2 walks (one word, for 32 rows)
       c_sparse — per padded CSR edge lane (gather + scatter)
     """
     c_push: float = 1.0
@@ -243,28 +247,43 @@ def frontier_stats(frontier: torch.Tensor, dist: torch.Tensor, *, bs: int,
 
 
 def sweep_costs(stats: SweepStats, *, n_pad: int, s: int, m_pad: int,
-                cfg: EngineConfig) -> torch.Tensor:
+                cfg: EngineConfig,
+                live_words: Optional[int] = None) -> torch.Tensor:
     """Modelled cost of one sweep in each form -> (3,) float32.  Each
     constant is a Python float rounded to float32 before it scales the
-    float32 statistic, as JAX's weak typing does."""
+    float32 statistic, as JAX's weak typing does.
+
+    ``live_words`` is the entry count of the packed operand's live-word
+    index when the forms read it (K1 / K2 on the card).  Both are then one
+    kernel sequence that walks, once per 32-row group, the index entries
+    of each column still pending, so both cost ``c_pull`` per entry times
+    the groups and ``o_occ_frac`` (at most the sparse cost, since a live
+    word holds at least one lane).  Without it, push and pull are the TPU
+    kernels' dense work, as in the JAX package."""
     words = n_pad // 32
     dev = stats.live_tile_frac.device
 
     def f32(x):
         return torch.tensor(x, dtype=torch.float32, device=dev)
 
-    push = f32(cfg.c_push * s * n_pad * n_pad) * stats.live_tile_frac
-    pull = f32(cfg.c_pull * s * n_pad * words) * stats.o_occ_frac
+    if live_words is None:
+        push = f32(cfg.c_push * s * n_pad * n_pad) * stats.live_tile_frac
+        pull = f32(cfg.c_pull * s * n_pad * words) * stats.o_occ_frac
+    else:
+        push = pull = f32(cfg.c_pull * -(-s // 32) * live_words) \
+            * stats.o_occ_frac
     sparse = f32(cfg.c_sparse * s * m_pad)
     return torch.stack([push, pull, sparse])
 
 
 def choose_direction(stats: SweepStats, *, n_pad: int, s: int, m_pad: int,
-                     cfg: EngineConfig) -> int:
+                     cfg: EngineConfig,
+                     live_words: Optional[int] = None) -> int:
     """argmin of the modelled costs -> PUSH | PULL | SPARSE (first index
     on a tie)."""
     return int(torch.argmin(
-        sweep_costs(stats, n_pad=n_pad, s=s, m_pad=m_pad, cfg=cfg)))
+        sweep_costs(stats, n_pad=n_pad, s=s, m_pad=m_pad, cfg=cfg,
+                    live_words=live_words)))
 
 
 # --------------------------------------------------------------------------
@@ -299,11 +318,14 @@ def _run_batch(adj, adj_pull, src_idx, dst_idx, deg, sources: torch.Tensor,
 
     choose = None
     if forced_dir is None:
+        # the kernels that read the index are priced by its entries
+        live_words = None if index is None else index.words.numel()
+
         def choose(st: SweepState) -> int:
             stats = frontier_stats(st.frontier, st.dist, bs=bs, bn=cfg.bn,
                                    bk=cfg.bk)
             return choose_direction(stats, n_pad=n_pad, s=s, m_pad=m_pad,
-                                    cfg=cfg)
+                                    cfg=cfg, live_words=live_words)
 
     fused = None
     if fused_steps:  # resolved upstream: kernel path, push pinned

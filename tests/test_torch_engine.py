@@ -120,6 +120,85 @@ def test_cost_model_matches_jax(s):
                                   cfg=cfg_t)
 
 
+@pytest.mark.parametrize("s", [8, 32, 128])
+def test_index_priced_cost_model(s):
+    """Given the entry count of the live-word index the forms read (K1 /
+    K2 on the card), push and pull both cost ``c_pull`` an entry, per
+    32-row group and share of pending columns, and never more than the
+    sparse form while the count is at most ``m_pad``; given none, the
+    JAX package's model bit for bit."""
+    rng = np.random.default_rng(s + 1)
+    n_pad, bs, m_pad = 256, min(s, 128), 1024
+    cfg_j, cfg_t = jeng.EngineConfig(), teng.EngineConfig()
+    kw = dict(n_pad=n_pad, s=s, m_pad=m_pad, cfg=cfg_t)
+    for density, visited in ((0.0005, 0.5), (0.01, 0.5), (0.2, 0.5),
+                             (0.01, 0.0), (0.01, 1.0)):
+        f = (rng.random((s, n_pad)) < density).astype(np.int8)
+        d = np.where(rng.random((s, n_pad)) < visited, 1, -1).astype(np.int32)
+        sj = jeng.frontier_stats(jnp.asarray(f), jnp.asarray(d), bs=bs,
+                                 bn=128, bk=128)
+        st = teng.frontier_stats(torch.from_numpy(f), torch.from_numpy(d),
+                                 bs=bs, bn=128, bk=128)
+        np.testing.assert_array_equal(
+            np.asarray(jeng.sweep_costs(sj, n_pad=n_pad, s=s, m_pad=m_pad,
+                                        cfg=cfg_j)),
+            teng.sweep_costs(st, live_words=None, **kw).numpy())
+        sparse = np.float32(cfg_t.c_sparse * s * m_pad)
+        for live in (1, 97, m_pad // 2, m_pad):
+            c = teng.sweep_costs(st, live_words=live, **kw).numpy()
+            want = np.float32(cfg_t.c_pull * -(-s // 32) * live) \
+                * st.o_occ_frac.numpy()
+            np.testing.assert_array_equal(c, [want, want, sparse])
+            # linear in the count (doubling is exact in float32)
+            np.testing.assert_array_equal(
+                teng.sweep_costs(st, live_words=2 * live, **kw).numpy()[:2],
+                2 * c[:2])
+            assert c[0] <= c[2]
+            assert teng.choose_direction(st, live_words=live, **kw) == \
+                tsweep.PUSH
+
+
+def test_index_priced_switch_drives_the_loop(monkeypatch):
+    """A batch given the packed operand's live-word index, as the card's
+    kernel path is (the plain versions read it here), runs the forms the
+    index-priced model gives for the dense-priced run's per-sweep stats:
+    none sparse, where the dense-priced run does visit the sparse form,
+    and the same rows and sweeps."""
+    g = tgen.watts_strogatz(200, 6, 0.1, seed=3, device="cpu")
+    pg = teng.prepare_graph(g, device="cpu")
+    cfg = teng.EngineConfig(use_kernel=True)
+    s = 32
+    sources = torch.arange(0, 200, 7)
+    padded = torch.zeros(s, dtype=torch.int64)
+    padded[: sources.numel()] = sources
+    seen = []
+    stats_of = teng.frontier_stats
+    monkeypatch.setattr(teng, "frontier_stats",
+                        lambda *a, **k: seen.append(stats_of(*a, **k))
+                        or seen[-1])
+
+    def run(index):
+        return teng._run_batch(
+            None, pg.adj_pull, g.src, g.dst, pg.deg, padded, sources.numel(),
+            cfg=cfg, n_real=g.n_nodes, n_pad=pg.n_pad, max_steps=g.n_nodes,
+            use_kernel=True, forced_dir=None, index=index)
+
+    dense = run(None)
+    stats = list(seen)
+    live = pg.adj_pull_index.words.numel()
+    assert 0 < live <= g.m_pad
+    indexed = run(pg.adj_pull_index)
+    want = [0, 0, 0]
+    for st in stats:
+        want[teng.choose_direction(st, n_pad=pg.n_pad, s=s, m_pad=g.m_pad,
+                                   cfg=cfg, live_words=live)] += 1
+    assert list(indexed.dir_counts) == want
+    assert indexed.dir_counts[tsweep.SPARSE] == 0
+    assert dense.dir_counts[tsweep.SPARSE] > 0
+    assert torch.equal(indexed.dist, dense.dist)
+    assert (indexed.step, indexed.sweeps) == (dense.step, dense.sweeps)
+
+
 @pytest.mark.parametrize("family", ["random_ragged", "duplicate_edges",
                                     "star_in"])
 def test_derive_parents_matches_jax(family):
