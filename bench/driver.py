@@ -10,7 +10,10 @@ closed loop: each call is issued when the last one has returned, so its
 issue time is its due time; its latency runs from issue to completion
 (:func:`timer`).  The window takes every call started inside
 ``seconds`` and closes when the last one completes.  The compared rows
-are copied to the host, so the card holds only what the system holds.
+are copied to the host, so the card holds only what the system holds:
+into one buffer made in set-up (:class:`Kept`), a uniform sample drawn
+from the seed of every row the calls' draws name, so the window copies
+into memory it already holds.
 """
 from __future__ import annotations
 
@@ -27,13 +30,16 @@ MIX_KEYS = {"query", "sources_per_call", "key_pool", "check_rows_per_call",
             "why"}
 
 
+KEPT_BYTES = 512 * 2**20      # the host buffer of compared rows
+KEPT_ROWS = 1024              # and its most rows, however short a row
+
+
 @dataclasses.dataclass
 class Call:
     sources: np.ndarray          # (k,) int64
     wall_s: float
     counters: dict
-    rows: np.ndarray             # indices of the compared rows
-    kept: Optional[torch.Tensor]  # those rows as returned, on the host
+    rows: np.ndarray             # indices of the rows drawn for the check
     traced: bool
     error: Optional[str] = None
 
@@ -42,6 +48,40 @@ class Call:
 class Window:
     calls: List[Call]
     elapsed_s: float
+
+
+class Kept:
+    """The rows the check compares, on the host: a uniform sample of every
+    row the calls' draws name (Algorithm R, its draws from the run's
+    seed), at most ``KEPT_ROWS`` rows of ``KEPT_BYTES`` in all, in one
+    buffer made when this is made (pinned where the rows come from the
+    card).  The window copies into it, never into memory it has to get:
+    host memory the window would get for a row costs more than the copy
+    and more in some runs than in others.  ``where[s]`` is slot ``s``'s
+    (call index, row of the call)."""
+
+    def __init__(self, n: int, seed: int, device: torch.device):
+        self.cap = max(1, min(KEPT_ROWS, KEPT_BYTES // (4 * n)))
+        self.rows = torch.empty((self.cap, n), dtype=torch.int32,
+                                pin_memory=device.type == "cuda")
+        self.where: List[tuple] = []
+        self.seen = 0
+        self.rng = np.random.default_rng([seed, 3])
+
+    def keep(self, call: int, out: torch.Tensor, rows: np.ndarray) -> None:
+        """Offer ``out[rows]`` (call ``call``'s drawn rows) to the
+        sample."""
+        for r in rows.tolist():
+            i, self.seen = self.seen, self.seen + 1
+            if i < self.cap:
+                self.where.append(None)
+                slot = i
+            else:
+                slot = int(self.rng.integers(0, i + 1))
+                if slot >= self.cap:
+                    continue
+            self.rows[slot].copy_(out[r])
+            self.where[slot] = (call, r)
 
 
 class Plan:
@@ -109,21 +149,16 @@ def timer(device: torch.device) -> Callable[[Callable], tuple]:
     return timed
 
 
-def keep_rows(out: torch.Tensor, rows: np.ndarray) -> torch.Tensor:
-    """``out[rows]`` on the host, copied row by row: no tensor of the
-    harness's is made on the card."""
-    kept = torch.empty((len(rows), out.shape[1]), dtype=out.dtype)
-    for j, r in enumerate(rows.tolist()):
-        kept[j].copy_(out[r])
-    return kept
-
-
 def run(system, plan: Plan, seconds: float, device: torch.device,
-        capture=None, trace_seconds: float = 0.0) -> Window:
-    """The measured window.  With ``capture`` (a started
+        kept: Kept, capture=None, trace_seconds: float = 0.0) -> Window:
+    """The measured window; each call's drawn rows are offered to
+    ``kept``.  With ``capture`` (a started
     :class:`bench.devtrace.Capture`) the calls that start within its
     first ``trace_seconds`` are traced; the capture is stopped after the
-    last of them and its summary set on ``capture.summary``."""
+    last of them and its summary set on ``capture.summary``.  Each call's
+    tracing is settled before ``plan.sources()`` is asked for its
+    sources, so a plan sees whether the call is traced by
+    ``capture.active``."""
     timed = timer(device)
     calls: List[Call] = []
     t_start = time.perf_counter()
@@ -132,11 +167,11 @@ def run(system, plan: Plan, seconds: float, device: torch.device,
         t0 = time.perf_counter()
         if t0 - t_start >= seconds:
             break
-        srcs = plan.sources()
         traced = capture is not None and capture.active and \
             t0 - t_start < trace_seconds
         if capture is not None and capture.active and not traced:
             capture.summary = capture.stop()
+        srcs = plan.sources()
         error, out, counters = None, None, {}
         try:
             with capture.span() if traced else contextlib.nullcontext():
@@ -147,14 +182,12 @@ def run(system, plan: Plan, seconds: float, device: torch.device,
             wall = time.perf_counter() - t0
         t_end = time.perf_counter()
         rows = plan.rows()
-        kept = None
         if out is not None:
             if tuple(out.shape) == (len(srcs), plan.n):
-                kept = keep_rows(out, rows)
+                kept.keep(len(calls), out, rows)
             else:
                 error = f"rows {tuple(out.shape)} for {len(srcs)} sources"
-        calls.append(Call(srcs, wall, counters, rows, kept, traced,
-                          error))
+        calls.append(Call(srcs, wall, counters, rows, traced, error))
         del out
     if capture is not None and capture.active:
         capture.summary = capture.stop()

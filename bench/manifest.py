@@ -4,12 +4,14 @@ A configuration ``<c>`` is ``bench/configs/<c>.json`` (its ``file`` in
 the manifest), its generator ``bench/gen/<generator>.py``, a traffic mix
 ``<t>`` is ``bench/traffic/<t>.json`` and a per-layer metric ``<m>`` is
 read by ``bench/metrics/<m>.py``.  Adding any of them adds files and
-entries; nothing here changes.
+entries; nothing here changes.  A configuration that names a ``mesh``
+runs over that many cards (:func:`layout`).
 """
 from __future__ import annotations
 
 import importlib.util
 import json
+import math
 import re
 from pathlib import Path
 from types import ModuleType
@@ -64,6 +66,39 @@ def generator(name: str) -> ModuleType:
 def reader(metric: str) -> ModuleType:
     return _module(BENCH / "metrics" / f"{metric}.py",
                    "bench_metric_" + metric.replace(".", "_"))
+
+
+def layout(cell: dict, cfg: dict):
+    """The mesh ``cell`` runs on: its configuration's ``mesh``, ``{"shape":
+    [1, 4], "axes": ["data", "model"]}`` (the axes that
+    ``repro_torch.launch.mesh.make_mesh`` takes; ``model`` shards the sweep
+    operand), or None for one card.  A cell's ``chips`` is the product of
+    the shape; a configuration with no mesh runs on one card.  Anything
+    else is a ``ValueError``, before a card is touched."""
+    mesh, chips = cfg.get("mesh"), cell["chips"]
+    if mesh is None:
+        if chips != 1:
+            raise ValueError(
+                f"{cell['name']}: {chips} chips, but configuration "
+                f"{cell['config']!r} names no mesh: a configuration without "
+                f"one runs on one card")
+        return None
+    shape, axes = mesh.get("shape"), mesh.get("axes")
+    if set(mesh) != {"shape", "axes"} or not isinstance(shape, list) \
+            or not isinstance(axes, list) or not shape \
+            or len(axes) != len(shape) or len(set(axes)) != len(axes) \
+            or not all(type(s) is int and s >= 1 for s in shape) \
+            or not all(isinstance(a, str) and NAME.fullmatch(a)
+                       for a in axes):
+        raise ValueError(
+            f"configuration {cell['config']!r}: mesh {mesh!r} is not "
+            f'{{"shape": [ints >= 1], "axes": [as many distinct names]}}')
+    size = math.prod(shape)
+    if size != chips:
+        raise ValueError(
+            f"{cell['name']}: {chips} chips, but the mesh {shape} of "
+            f"configuration {cell['config']!r} holds {size} cards")
+    return mesh
 
 
 def cell_metrics(manifest: dict, cell: str) -> Tuple[List[dict], List[dict]]:

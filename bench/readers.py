@@ -17,20 +17,23 @@ def direction_counts(ctx) -> Optional[list]:
 
 def roofline_pct(ctx) -> Optional[float]:
     """The least time of the traced calls' work over the device's busy
-    time in those calls, in percent."""
+    time in those calls, in percent.  On several cards the work's least
+    time is spread over them all (``ctx.chips``) and set against the
+    cards' mean busy time."""
     s = ctx.summary
-    if s is None or s.busy_s <= 0 or not ctx.calls:
+    if s is None or ctx.busy_s <= 0 or not ctx.calls:
         return None
     least = sum(yardstick.least_seconds(
         yardstick.call_bytes(ctx.graph, c.sources), ctx.kind)
-        for _, c in ctx.calls)
-    return 100.0 * least / s.busy_s
+        for _, c in ctx.calls) / ctx.chips
+    return 100.0 * least / ctx.busy_s
 
 
 def idle_pct(ctx) -> Optional[float]:
     """The share of the traced window in which no operation ran on the
-    device, in percent."""
+    device, in percent (on several cards, of the cards' mean seconds, as
+    ``device.busy_s`` and ``device.window_s`` give them)."""
     s = ctx.summary
-    if s is None or s.n_device_ops == 0 or s.window_s <= 0:
+    if s is None or s.n_device_ops == 0 or ctx.window_s <= 0:
         return None
-    return 100.0 * (1.0 - s.busy_s / s.window_s)
+    return 100.0 * (1.0 - ctx.busy_s / ctx.window_s)

@@ -13,8 +13,14 @@ set-up, so it is the system's own.  Then the closed loop of
 records the calls of the window's first ``TRACE_SECONDS``.  Once the
 window has closed and the peak memory has been read, the system is
 freed, the benchmark's own view of the graph (:mod:`bench.reference`) is
-built on the card, and the reference searches again every row the check
-drew; a row that differs in any entry is wrong.
+built on the card, and the reference searches again every row of the
+check's sample (:class:`bench.driver.Kept`, drawn from the seed over all
+the rows the calls' draws name); a row that differs in any entry is
+wrong.
+
+A cell whose configuration names a ``mesh`` runs as one process per card
+on the port's mesh path instead (:mod:`bench.world`); a cell on one card
+takes the path above, and nothing of the mesh path runs in it.
 
 The last line of standard output is the result (JSON); the last lines
 of standard error are the numbers compared, each beside its limit.  No
@@ -62,14 +68,21 @@ def card_power() -> str:
 class Context:
     """What a per-layer reader (``bench/metrics/<name>.py``) reads: the
     traced calls, the reference's levels of their sources, the trace
-    summary, the graph the yardstick counts on and the card's name."""
+    summary (rank 0's on several cards), the graph the yardstick counts
+    on, the card's name, the number of cards and the device's busy and
+    traced seconds, the cards' means (``device.busy_s``, ``.window_s``)."""
 
-    def __init__(self, calls, levels, summary, graph, kind):
+    def __init__(self, calls, levels, summary, graph, kind, chips=1,
+                 busy=None):
         self.calls = calls
         self.levels = levels          # {(call index, row): eccentricity}
         self.summary = summary
         self.graph = graph
         self.kind = kind
+        self.chips = chips            # the cards the calls ran on
+        if busy is None and summary is not None:
+            busy = (summary.busy_s, summary.window_s)
+        self.busy_s, self.window_s = busy or (0.0, 0.0)
 
 
 def run_cell(cfg: dict, mix: dict, e2e: list, layer: list, *, seed: int,
@@ -79,11 +92,9 @@ def run_cell(cfg: dict, mix: dict, e2e: list, layer: list, *, seed: int,
     checks).  ``system`` builds what the window drives from the tuples on
     the host, ``(src, dst, n, device) -> object`` (default: the program;
     the control and the tests give their own)."""
-    import numpy as np
     import torch
 
-    from bench import devtrace, driver, manifest, reference, systems
-    from bench import yardstick
+    from bench import devtrace, driver, manifest, systems
 
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
     dev = torch.device(device)
@@ -108,6 +119,7 @@ def run_cell(cfg: dict, mix: dict, e2e: list, layer: list, *, seed: int,
     sut = system(src, dst, n, dev)
     driver.issue(sut, plan.query, warm)
     sync()
+    kept = driver.Kept(n, seed, dev)
     capture = None
     if trace:
         capture = devtrace.Capture()
@@ -115,7 +127,7 @@ def run_cell(cfg: dict, mix: dict, e2e: list, layer: list, *, seed: int,
     setup_s = time.perf_counter() - t0
     log(f"set-up {setup_s:.3f} s: n {n}, tuples {src.numel()}")
 
-    win = driver.run(sut, plan, seconds, dev, capture=capture,
+    win = driver.run(sut, plan, seconds, dev, kept, capture=capture,
                      trace_seconds=TRACE_SECONDS)
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     sut.close()
@@ -123,29 +135,69 @@ def run_cell(cfg: dict, mix: dict, e2e: list, layer: list, *, seed: int,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
+    return finish(src, dst, n, win, kept, capture, e2e, layer,
+                  setup_s=setup_s, peak=peak, trace=trace, dev=dev, log=log)
 
-    # the check: every drawn row against the reference's search
+
+class Levels:
+    """``(call index, row of the call) -> the reference's eccentricity of
+    that row's source`` (its farthest level): known for the compared
+    rows, and worked out for a row of any other call on first asking."""
+
+    def __init__(self, g, calls):
+        self.g, self.calls, self.known = g, calls, {}
+
+    def __contains__(self, key) -> bool:
+        i, row = key
+        return 0 <= i < len(self.calls) and \
+            0 <= row < len(self.calls[i].sources)
+
+    def __getitem__(self, key) -> int:
+        from bench import reference
+        if key not in self.known:
+            if key not in self:
+                raise KeyError(key)
+            i = key[0]
+            r = reference.bfs_rows(self.g, self.calls[i].sources)
+            for row, lev in enumerate(r.amax(dim=1).tolist()):
+                self.known[(i, row)] = lev
+        return self.known[key]
+
+
+def finish(src, dst, n, win, kept, capture, e2e: list, layer: list, *,
+           setup_s: float, peak: int, trace: bool, dev, log, chips: int = 1,
+           busy=None):
+    """The check and the result of a closed window, once the system is
+    freed: every row ``kept`` holds against the reference's search ->
+    (result dict, checks).  ``peak`` is the fullest card's;
+    ``busy``, where given, is ``(busy_s, window_s)`` over the cards (else
+    the capture's)."""
+    import numpy as np
+    import torch
+
+    from bench import manifest, reference, yardstick
+
+    cuda = dev.type == "cuda"
+    # the check: every kept row against the reference's search
     t_check = time.perf_counter()
     g = reference.Graph(src.to(dev), dst.to(dev), n)
     del src, dst
     log(f"reference graph in {time.perf_counter() - t_check:.3f} s: "
         f"lanes {g.n_lanes}, edges {g.n_lanes // 2}")
-    checked = [(i, c) for i, c in enumerate(win.calls) if c.kept is not None]
-    wrong, levels = {}, {}
-    if checked:
-        ref = reference.bfs_rows(
-            g, np.concatenate([c.sources[c.rows] for _, c in checked]))
-        at = 0
-        for i, c in checked:
-            r = ref[at: at + len(c.rows)]
-            at += len(c.rows)
-            wrong[i] = int((c.kept.to(r.device, r.dtype) != r).sum())
-            for row, lev in zip(c.rows.tolist(), r.amax(dim=1).tolist()):
-                levels[(i, row)] = lev
-            c.kept = None
+    wrong, levels = {}, Levels(g, win.calls)
+    compared = len(kept.where)
+    if compared:
+        ref = reference.bfs_rows(g, np.array(
+            [win.calls[i].sources[r] for i, r in kept.where], np.int64))
+        diff = (kept.rows[:compared].to(ref.device) != ref).sum(dim=1)
+        for (i, r), d, lev in zip(kept.where, diff.tolist(),
+                                  ref.amax(dim=1).tolist()):
+            wrong[i] = wrong.get(i, 0) + d
+            levels.known[(i, r)] = lev
+        del ref, diff
     wrong_entries = sum(wrong.values())
-    log(f"check: {sum(len(c.rows) for _, c in checked)} rows against the "
-        f"reference in {time.perf_counter() - t_check:.3f} s")
+    log(f"check: {compared} rows, a sample of the {kept.seen} drawn, "
+        f"against the reference in {time.perf_counter() - t_check:.3f} s")
     failed = sum(1 for i, c in enumerate(win.calls)
                  if c.error is not None or wrong.get(i, 0))
     errors = [c.error for c in win.calls if c.error is not None]
@@ -178,7 +230,7 @@ def run_cell(cfg: dict, mix: dict, e2e: list, layer: list, *, seed: int,
     summary = capture.summary if capture is not None else None
     if trace:
         traced = [(i, c) for i, c in enumerate(win.calls) if c.traced]
-        ctx = Context(traced, levels, summary, g, kind)
+        ctx = Context(traced, levels, summary, g, kind, chips, busy)
         for m in layer:
             v = manifest.reader(m["name"]).read(ctx)
             if v is not None:
@@ -190,16 +242,15 @@ def run_cell(cfg: dict, mix: dict, e2e: list, layer: list, *, seed: int,
                 f"device busy {summary.busy_s} s of {summary.window_s} s")
 
     device_info = {"platform": "gpu" if cuda else "cpu", "kind": kind,
-                   "count": 1, "memory_peak_bytes": int(peak)}
+                   "count": chips, "memory_peak_bytes": int(peak)}
     result = {"correct": False, "attempted": len(win.calls),
               "failed": failed, "metrics": metrics, "device": device_info}
     if trace and summary is not None:
-        device_info["busy_s"] = summary.busy_s
-        device_info["window_s"] = summary.window_s
+        device_info["busy_s"], device_info["window_s"] = ctx.busy_s, \
+            ctx.window_s
         result["breakdown"] = {
             "device_ops": [list(x) for x in summary.device_ops],
             "idle_gaps": [list(x) for x in summary.idle_gaps]}
-    compared = sum(len(c.rows) for _, c in checked)
     checks = [("wrong_entries", wrong_entries, "<=", 0),
               ("failed_calls", failed, "<=", 0),
               ("rows_compared", compared, ">=", 1)]
@@ -224,6 +275,8 @@ def main(argv=None) -> int:
     from bench import manifest
     m = manifest.load()
     cell = manifest.workload(m, args.workload)
+    cfg = manifest.config(m, cell["config"])
+    mesh = manifest.layout(cell, cfg)
 
     import torch
     if not torch.cuda.is_available() or \
@@ -233,16 +286,52 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    cfg = manifest.config(m, cell["config"])
     e2e, layer = manifest.cell_metrics(m, args.workload)
+    mix = manifest.traffic(cell["traffic"])
+    if mesh is not None:
+        return ranked(cfg, mix, e2e, layer, args)
     result, checks = run_cell(
-        cfg, manifest.traffic(cell["traffic"]), e2e, layer,
+        cfg, mix, e2e, layer,
         seed=args.seed, seconds=args.seconds, trace=bool(args.trace))
-    print(f"card: {card_power()}", file=sys.stderr)
+    return report(result, checks)
+
+
+def ranked(cfg: dict, mix: dict, e2e: list, layer: list, args) -> int:
+    """A cell whose configuration names a mesh: one process per card
+    (:mod:`bench.world`); this process prints rank 0's result once every
+    rank has exited 0."""
+    from bench import world
+    t0 = world.monotonic() - (time.perf_counter() - T0)
+    rc, out = world.launch({
+        "config": cfg, "mix": mix, "e2e": e2e, "layer": layer,
+        "seed": args.seed, "seconds": args.seconds,
+        "trace": bool(args.trace), "device": "cuda",
+        "system": world.SYSTEM, "t0": t0})
+    if rc:
+        return rc
+    if foreign_loaded():
+        return 3
+    sys.stdout.write(out)
+    sys.stdout.flush()
+    return 0
+
+
+def foreign_loaded() -> bool:
+    """Whether a module of JAX or of the JAX package is loaded in this
+    process; if so, say which on standard error."""
     found = foreign_modules(list(sys.modules))
     if found:
         print(f"loaded in this process: {', '.join(found)}: no result",
-              file=sys.stderr)
+              file=sys.stderr, flush=True)
+    return bool(found)
+
+
+def report(result: dict, checks: list) -> int:
+    """Print the card, the numbers compared and the result line; or, with
+    a module of JAX or of the JAX package loaded here, exit code 3 and
+    no result."""
+    print(f"card: {card_power()}", file=sys.stderr)
+    if foreign_loaded():
         return 3
     for name, v, op, lim in checks:
         print(f"check {name} {v} {op} {lim}", file=sys.stderr)

@@ -199,10 +199,36 @@ def test_kept_rows_are_on_the_host_and_the_call_timed_by_the_host_clock():
     import numpy as np
     from bench import driver
     out = torch.arange(24, dtype=torch.int32).view(4, 6)
-    kept = driver.keep_rows(out, np.array([1, 3]))
-    assert kept.device.type == "cpu"
-    assert torch.equal(kept, out[[1, 3]])
+    kept = driver.Kept(6, 1, torch.device("cpu"))
+    kept.keep(0, out, np.array([1, 3]))
+    assert kept.rows.device.type == "cpu"
+    assert kept.where == [(0, 1), (0, 3)]
+    assert torch.equal(kept.rows[:2], out[[1, 3]])
     timed = driver.timer(torch.device("cpu"))
     t0 = time.perf_counter()
     value, s = timed(lambda: time.sleep(0.05) or 7)
     assert value == 7 and 0.05 <= s <= time.perf_counter() - t0
+
+
+def test_the_kept_rows_are_a_seeded_sample_of_every_drawn_row(monkeypatch):
+    """More rows drawn than the buffer holds: it keeps a sample of them
+    all, each slot the row it names, the same for the same seed, late
+    calls as likely as early ones."""
+    import numpy as np
+    from bench import driver
+    monkeypatch.setattr(driver, "KEPT_ROWS", 64)
+
+    def sample(seed):
+        kept = driver.Kept(5, seed, torch.device("cpu"))
+        for call in range(400):
+            out = torch.arange(call * 20, call * 20 + 20,
+                               dtype=torch.int32).view(4, 5)
+            kept.keep(call, out, np.array([0, 2]))
+        return kept
+    a, b, c = sample(7), sample(7), sample(8)
+    assert a.cap == 64 and len(a.where) == 64 and a.seen == 800
+    for slot, (call, row) in enumerate(a.where):
+        assert a.rows[slot, 0] == call * 20 + row * 5
+    assert a.where == b.where and a.where != c.where
+    calls = np.array([call for call, _ in a.where + c.where])
+    assert 0.3 < np.mean(calls >= 200) < 0.7
