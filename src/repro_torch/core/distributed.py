@@ -48,6 +48,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .. import trace
 from ..graph.csr import CSRGraph, _round_up, same_device
 from ..graph.partition import edge_partition_global
 from ..kernels import common as kernel_common
@@ -186,6 +187,8 @@ def _dense_block(g: CSRGraph, n_pad: int, k0: int, nk: int, semiring: str,
                  ) -> torch.Tensor:
     """This rank's K-row block, built on its device from the CSR lanes (a
     rank never builds the whole n_pad^2 operand)."""
+    if packed:
+        return g.to_pull_packed_block(n_pad, k0, nk)
     # the real lanes whose source lies in rows [k0, k0 + nk)
     keep = (g.src < g.n_nodes) & (g.src >= k0) & (g.src < k0 + nk)
     src, dst = g.src[keep].long() - k0, g.dst[keep].long()
@@ -195,16 +198,6 @@ def _dense_block(g: CSRGraph, n_pad: int, k0: int, nk: int, semiring: str,
                           device=dev)
         flat.index_reduce_(0, src * n_pad + dst, lanes[keep], "amin")
         return flat.view(nk, n_pad)
-    if packed:
-        # row j: bit (u - k0) % 32 of word (u - k0) // 32 for every u -> j,
-        # as graph.to_pull_packed builds the square operand
-        words = nk // 32
-        key = torch.unique(dst * nk + src)    # duplicate lanes: one bit
-        dst, src = key // nk, key % nk
-        out = torch.zeros(n_pad * words, dtype=torch.int64, device=dev)
-        out.index_add_(0, dst * words + (src >> 5),
-                       torch.ones_like(src) << (src & 31))
-        return out.to(torch.int32).view(n_pad, words)
     out = torch.zeros((nk, n_pad), dtype=torch.int8, device=dev)
     out[src, dst] = 1
     return out
@@ -267,8 +260,13 @@ def prepare_sharded(g: CSRGraph, mesh, *, weights=None,
                 f"would be silently dropped")
     else:
         if dense_op is None:
-            dense_op = _dense_block(g, n_pad, c * nk, nk, semiring, lanes,
-                                    packed)
+            with trace.setup_span("dawn.mesh.block"):
+                dense_op = _dense_block(g, n_pad, c * nk, nk, semiring,
+                                        lanes, packed)
+                if dev.type == "cuda":      # the span holds the build
+                    torch.cuda.synchronize(dev)
+            trace.gauge("dawn.mesh.block_bytes",
+                        dense_op.numel() * dense_op.element_size())
         else:
             want = PreparedWeightedGraph if tropical else PreparedGraph
             if not isinstance(dense_op, want):
@@ -346,22 +344,29 @@ class _Mesh:
     def reduce(self, x: torch.Tensor, op, axes: Sequence[str]
                ) -> torch.Tensor:
         """All-reduce ``x`` in place over ``axes`` (exact for MIN, MAX and
-        integer-valued SUM in any order)."""
+        integer-valued SUM in any order), each in a ``dawn.mesh.reduce``
+        span on the device's clock."""
         for a in axes:
-            self.dist.all_reduce(x, op=op, group=self.groups[a])
+            with trace.device_span("dawn.mesh.reduce", x.device):
+                self.dist.all_reduce(x, op=op, group=self.groups[a])
         return x
 
     def gather(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
         """All-gather ``x`` along its first dimension over ``axes``, in
         row-major order of their coordinates (the last axis varies
-        fastest)."""
+        fastest), each in a ``dawn.mesh.gather`` span on the device's
+        clock; the counter ``dawn.mesh.gather_bytes`` adds the bytes this
+        rank receives from the other ranks of the axis."""
         for a in reversed(tuple(axes)):
             out = torch.empty((self.extent[a] * x.shape[0],) + x.shape[1:],
                               dtype=x.dtype, device=x.device)
-            with warnings.catch_warnings():
+            with trace.device_span("dawn.mesh.gather", x.device), \
+                    warnings.catch_warnings():
                 warnings.simplefilter("ignore", FutureWarning)
                 self.dist.all_gather_into_tensor(out, x.contiguous(),
                                                  group=self.groups[a])
+            trace.count("dawn.mesh.gather_bytes",
+                        (self.extent[a] - 1) * x.numel() * x.element_size())
             x = out
         return x
 
@@ -413,12 +418,18 @@ def _forms(ops: ShardedOperands, comm: _Mesh, s_l: int, n_real: int):
     def or_combine(new_p):
         """⊕ = OR, bit-packed: all-gather int32 words (n_pad / 8 bytes a
         row, 8x under an int8 MAX) and OR them in group order."""
-        words = comm.gather(pack_bits(new_p != 0), model)
-        words = words.view(C, -1, words.shape[-1])
-        acc = words[0]
-        for i in range(1, C):
-            acc = acc | words[i]
-        return unpack_bits(acc, n_pad).to(torch.int8)
+        with trace.span("dawn.mesh.combine"):
+            words = comm.gather(pack_bits(new_p != 0), model)
+            words = words.view(C, -1, words.shape[-1])
+            acc = words[0]
+            for i in range(1, C):
+                acc = acc | words[i]
+            return unpack_bits(acc, n_pad).to(torch.int8)
+
+    def combine(x, op):
+        """⊕ = MIN or SUM: an all-reduce over the ``model`` group."""
+        with trace.span("dawn.mesh.combine"):
+            return comm.reduce(x, op, model)
 
     def step_of(d, step):
         return torch.tensor(step, dtype=d.dtype, device=d.device)
@@ -427,7 +438,7 @@ def _forms(ops: ShardedOperands, comm: _Mesh, s_l: int, n_real: int):
         """⊕ = masked ADD, the non-idempotent combine: each shard's
         candidate counts are gated to zero where they cannot contribute,
         then SUMMED, so every shortest path is counted exactly once."""
-        cand = comm.reduce(cand_p, SUM, model) if vertex_sharded else cand_p
+        cand = combine(cand_p, SUM) if vertex_sharded else cand_p
         new = (cand > 0) & (d == UNREACHED)
         return (new.to(torch.int8),
                 (torch.where(new, step_of(d, step), d),
@@ -497,7 +508,7 @@ def _forms(ops: ShardedOperands, comm: _Mesh, s_l: int, n_real: int):
                 nd = partial_nd(fd, d)
                 if vertex_sharded:
                     # ⊕ = min: exact combine of the partials
-                    nd = comm.reduce(nd, MIN, model)
+                    nd = combine(nd, MIN)
                 return (nd < d).to(torch.int8), nd, p
         else:
             push = S.boolean_forms(
@@ -566,7 +577,7 @@ def _forms(ops: ShardedOperands, comm: _Mesh, s_l: int, n_real: int):
             if vertex_sharded:
                 def sparse_form(f, d, p, step):
                     _, nd_p, _ = sparse_c(f, d, p, step)
-                    nd = comm.reduce(nd_p, MIN, model)
+                    nd = combine(nd_p, MIN)
                     return (nd < d).to(torch.int8), nd, p
             else:
                 sparse_form = sparse_c

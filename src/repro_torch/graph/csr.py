@@ -270,6 +270,40 @@ class CSRGraph:
                           torch.ones_like(src) << (src & 31))
         return packed.to(torch.int32).view(n_pad, words)
 
+    def to_pull_packed_block(self, n_pad: int, k0: int, nk: int
+                             ) -> torch.Tensor:
+        """(n_pad, ceil(nk/32)) packed in-neighbour words of the sources
+        in columns ``[k0, k0 + nk)`` — one K-row block of the sharded
+        executor's operand — as int32 carrying the uint32 bit pattern.
+        Row ``j`` holds bit ``(u - k0) % 32`` of word ``(u - k0) // 32``
+        for every edge ``u -> j`` with ``k0 <= u < k0 + nk``: for ``k0``
+        and ``nk`` multiples of 32 the matching column slice of
+        :meth:`to_pull_packed`.  Only the block itself has its size: the
+        words are summed over the distinct lanes of the block and written
+        into it, so every temporary grows with the block's lanes."""
+        n = self.n_nodes
+        if n_pad < n or not 0 <= k0 <= k0 + nk <= n_pad:
+            raise ValueError(f"columns [{k0}, {k0 + nk}) outside n_pad="
+                             f"{n_pad} (n_nodes={n})")
+        words = (nk + 31) // 32
+        keep = (self.src < n) & (self.src >= k0) & (self.src < k0 + nk)
+        src = self.src[keep].long() - k0
+        dst = self.dst[keep].long()
+        # sorted and distinct (duplicate lanes: one bit), so the word keys
+        # come sorted and each word's lanes lie side by side
+        key = torch.unique(dst * nk + src)
+        src = key % nk
+        word, slot = torch.unique_consecutive(
+            key // nk * words + (src >> 5), return_inverse=True)
+        # distinct bits of one word: their sum is their OR
+        bits = torch.zeros(word.numel(), dtype=torch.int64,
+                           device=self.device)
+        bits.index_add_(0, slot, torch.ones_like(src) << (src & 31))
+        out = torch.zeros(n_pad * words, dtype=torch.int32,
+                          device=self.device)
+        out[word] = bits.to(torch.int32)
+        return out.view(n_pad, words)
+
     def reverse(self) -> "CSRGraph":
         """Transpose view as a first-class CSRGraph (shares buffers)."""
         return CSRGraph(

@@ -10,6 +10,11 @@ There is no other switch.
     shared no-op context (one flag read); on, it enters
     ``record_function(name)`` and adds its ``time.perf_counter`` seconds
     and one use to the window table.
+  * :func:`device_span` — a range of work on the card (the mesh's
+    collectives): on, its seconds are the card's, between two CUDA
+    events on the current stream around it, so they hold the work it
+    enqueued and what that work waited for; they are read when the
+    table is.  Off the card it is a :func:`span`.
   * :func:`count` — adds to a window counter, only when on.
   * :func:`setup_span`, :func:`gauge` — once-per-graph set-up work
     (loading, preparing, building an operand) and the bytes it holds,
@@ -35,6 +40,7 @@ _window_spans: Dict[str, list] = {}     # name -> [seconds, uses]
 _window_counts: Dict[str, int] = {}
 _setup_spans: Dict[str, list] = {}
 _gauges: Dict[str, float] = {}
+_pending: list = []                     # (name, start, end) CUDA events
 
 
 def enabled() -> bool:
@@ -75,6 +81,50 @@ def span(name: str):
     return _Span(name, _window_spans, True)
 
 
+class _DeviceSpan:
+    __slots__ = ("name", "_range", "_stream", "_start", "_end")
+
+    def __init__(self, name: str, device: torch.device):
+        self.name = name
+        self._range = torch.profiler.record_function(name)
+        self._stream = torch.cuda.current_stream(device)
+        self._start = torch.cuda.Event(enable_timing=True)
+        self._end = torch.cuda.Event(enable_timing=True)
+
+    def __enter__(self):
+        self._range.__enter__()
+        self._start.record(self._stream)
+        return self
+
+    def __exit__(self, *exc):
+        self._end.record(self._stream)
+        self._range.__exit__(*exc)
+        with _lock:
+            _pending.append((self.name, self._start, self._end))
+        return False
+
+
+def device_span(name: str, device: torch.device):
+    """A range of the window timed on ``device``'s clock where it is a
+    card (host seconds elsewhere): free while the profiler is off."""
+    if not _profiler._is_profiler_enabled:
+        return _NULL
+    if device.type != "cuda":
+        return _Span(name, _window_spans, True)
+    return _DeviceSpan(name, device)
+
+
+def _settle() -> None:
+    """Add the finished device spans' seconds to the window table (waits
+    for their end events).  Holds the lock."""
+    for name, start, end in _pending:
+        end.synchronize()
+        acc = _window_spans.setdefault(name, [0.0, 0])
+        acc[0] += start.elapsed_time(end) / 1e3
+        acc[1] += 1
+    _pending.clear()
+
+
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to a window counter while the profiler records."""
     if not _profiler._is_profiler_enabled:
@@ -101,6 +151,7 @@ def snapshot() -> dict:
     def spans(table):
         return {k: {"s": v[0], "n": v[1]} for k, v in table.items()}
     with _lock:
+        _settle()
         return {"window": {"spans": spans(_window_spans),
                            "counters": dict(_window_counts)},
                 "setup": {"spans": spans(_setup_spans),
@@ -110,5 +161,6 @@ def snapshot() -> dict:
 def reset() -> None:
     """Clear the window and the set-up tables."""
     with _lock:
-        for table in (_window_spans, _window_counts, _setup_spans, _gauges):
+        for table in (_window_spans, _window_counts, _setup_spans, _gauges,
+                      _pending):
             table.clear()

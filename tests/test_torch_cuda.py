@@ -1309,6 +1309,74 @@ def test_kernels_on_k_row_blocks_match_plain(cuda):
     _same(want, ((nd < df).to(torch.int8), nd))
 
 
+def _kronecker_graph(scale: int, device) -> CSRGraph:
+    """Graph500's Kronecker graph at ``scale`` from the benchmark's
+    generator (``bench/gen/kronecker.py``, graph seed 0), loaded with both
+    directions of every tuple as the benchmark loads it."""
+    from bench.gen import kronecker
+    cfg = {"scale": scale, "edgefactor": 16, "a": 0.57, "b": 0.19,
+           "c": 0.19}
+    src, dst, n = kronecker.generate(cfg, 0, device)
+    s = torch.cat([src, dst]).cpu().numpy()
+    d = torch.cat([dst, src]).cpu().numpy()
+    return CSRGraph.from_edges(s, d, n, device=device)
+
+
+def test_kron20_block_builds_in_little_more_than_itself(cuda):
+    """One rank's K-row block of Graph500 SCALE 20 on a (1, 4) mesh (k0 =
+    0, nk = 262,272): 32 GiB of packed words, built with under 2 GiB on
+    the card beside the graph and the block itself; at SCALE 16 each of
+    the four blocks equals the int64 build it replaced."""
+    from test_torch_mesh_block import int64_build
+    g = _kronecker_graph(16, cuda)
+    n_pad = g.n_padded(128 * 4)
+    nk = n_pad // 4
+    for c in range(4):
+        assert torch.equal(g.to_pull_packed_block(n_pad, c * nk, nk),
+                           int64_build(g, n_pad, c * nk, nk))
+    del g
+    g = _kronecker_graph(20, cuda)
+    n_pad = g.n_padded(128 * 4)
+    nk = n_pad // 4
+    assert (n_pad, nk) == (1_049_088, 262_272)
+    torch.cuda.synchronize(cuda)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    block = g.to_pull_packed_block(n_pad, 0, nk)
+    torch.cuda.synchronize(cuda)
+    held = block.numel() * block.element_size()
+    over = torch.cuda.max_memory_allocated(cuda) - base - held
+    print(f"kron20 block: lanes {g.n_edges}, block {held} B, peak above "
+          f"the graph and the block {over} B")
+    assert block.shape == (1_049_088, 8_196)
+    assert held == 34_393_300_992
+    assert over < 2 * 2**30
+    assert bool((block != 0).any())
+
+
+def test_a_device_span_reads_the_cards_clock(cuda):
+    """Under the profiler ``trace.device_span`` times the work it enqueued
+    on the card: a sleep kernel's tens of milliseconds, where the host
+    returns from the launch at once."""
+    import time
+
+    from repro_torch import trace
+    trace.reset()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        t0 = time.perf_counter()
+        with trace.device_span("dawn.mesh.gather", cuda):
+            torch.cuda._sleep(50_000_000)
+        host = time.perf_counter() - t0
+    got = trace.snapshot()["window"]["spans"]["dawn.mesh.gather"]
+    trace.reset()
+    print(f"device span {got['s']} s, host {host} s")
+    assert got["n"] == 1
+    assert got["s"] > 0.01 and got["s"] > 5 * host
+
+
 def test_loaders_default_to_the_card_and_equal_the_cpu_load(cuda, tmp_path):
     """``load_mtx`` / ``load_edgelist`` with no ``device`` put the graph
     and its lane weights on the card, equal to the CPU load; the loaded

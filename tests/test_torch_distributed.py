@@ -44,6 +44,7 @@ from repro_torch.core import (CentralityConfig, EngineConfig, ShardedConfig,
                               WeightedConfig, apsp_engine, counting_apsp,
                               sharded_apsp, weighted_apsp)
 from repro_torch.graph import generators as tgen
+from repro_torch.graph.csr import _round_up
 from repro_torch.launch import mesh as M
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -412,3 +413,75 @@ def test_sharded_entry_validation():
         sharded_apsp(g, [0])
     with pytest.raises(ValueError, match="DeviceMesh"):
         sharded_apsp(g, [0], mesh=object())
+
+
+# the traced calls of the rank suite: (data extent D, model extent C,
+# n, sources) of each
+TRACED = {"trace.boolean": (2, 4, 512, W.N_SOURCES),
+          "trace.tropical": (2, 4, 512, W.N_SOURCES),
+          "trace.counting": (2, 4, 512, W.N_SOURCES),
+          "trace.packed": (2, 2, 128, W.N_SOURCES)}
+
+
+def test_mesh_window_table_is_empty_with_the_profiler_off(world):
+    ranks, _ = world
+    assert [int(r["trace.off_window_empty"]) for r in ranks] == [1] * 8
+
+
+@pytest.mark.parametrize("key", sorted(TRACED))
+def test_mesh_spans_and_counters(world, key):
+    """Under the profiler a vertex-sharded call records one
+    ``dawn.mesh.combine`` a sweep, a ``dawn.mesh.gather`` per all-gather
+    and a ``dawn.mesh.reduce`` per all-reduce, as ``record_function``
+    ranges too; ``dawn.mesh.gather_bytes`` is what the rank received from
+    the other ranks: (C - 1) slices of packed words a boolean sweep, and
+    (D - 1) slices of each result gathered over the data axis."""
+    ranks, _ = world
+    D, C, n, s = TRACED[key]
+    semiring = "boolean" if key == "trace.packed" else key.split(".")[1]
+    n_pad = _round_up(n + 1, 128 * C)
+    s_l = _round_up(s, 8 * D) // D
+    held = [r for r in ranks if f"{key}.dist" in r]
+    assert len(held) == D * C
+    for r in held:
+        sweeps = int(r[f"{key}.sweeps"])
+        assert r[f"{key}.dirs"].tolist() == [sweeps, 0]
+        assert int(r[f"{key}.counted_sweeps"]) == sweeps
+        assert int(r[f"{key}.in_events"]) == 1
+        results = 2 if semiring == "counting" else 1     # dist (+ sigma)
+        received = results * (D - 1) * s_l * n * 4
+        if semiring == "boolean":
+            received += sweeps * (C - 1) * s_l * (n_pad // 32) * 4
+        assert int(r[f"{key}.gather_bytes"]) == received
+        assert int(r[f"{key}.combine"]) == sweeps
+        assert int(r[f"{key}.gather"]) == results + \
+            (sweeps if semiring == "boolean" else 0)
+        # Fact 1 over both axes a sweep, the MIN / SUM combines, and the
+        # edge counter over the data axis
+        assert int(r[f"{key}.reduce"]) == 2 * sweeps + 1 + \
+            (0 if semiring == "boolean" else sweeps)
+    # tracing changes no result
+    untraced = "kernel.boolean.dense" if key == "trace.packed" else \
+        f"mesh.2x4.{semiring}.dense"
+    want = ranks[0][f"{untraced}.dist"]
+    np.testing.assert_array_equal(held[0][f"{key}.dist"][: len(want)], want)
+
+
+@pytest.mark.parametrize("key", sorted(TRACED))
+def test_mesh_block_setup_span_and_gauge(world, key):
+    """``prepare_sharded`` builds the rank's K-row block in one
+    ``dawn.mesh.block`` set-up span, and ``dawn.mesh.block_bytes`` is the
+    block it holds: packed words on the kernel path, else (n_pad / C,
+    n_pad) int8 or f32."""
+    ranks, _ = world
+    _, C, n, _ = TRACED[key]
+    n_pad = _round_up(n + 1, 128 * C)
+    want = [n_pad, n_pad // C // 32] if key == "trace.packed" else \
+        [n_pad // C, n_pad]
+    held = [r for r in ranks if f"{key}.dist" in r]
+    for r in held:
+        assert int(r[f"{key}.block_n"]) == 1
+        assert r[f"{key}.block_shape"].tolist() == want
+        size = 4 if key in ("trace.packed", "trace.tropical") else 1
+        assert int(r[f"{key}.block_bytes"]) == \
+            int(r[f"{key}.block_held"]) == want[0] * want[1] * size

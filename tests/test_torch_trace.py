@@ -2,6 +2,8 @@
 off (nothing kept, ``record_function`` never entered), on under
 ``torch.profiler`` (the ``dawn.*`` ranges in the profiler's events, the
 counters equal to the results' own), and the set-up table kept always."""
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -76,6 +78,23 @@ def test_off_nothing_is_recorded_and_record_function_never_entered(
     h.sssp(5)
     assert int(r.direction_counts.sum()) > 0
     assert trace.snapshot()["window"] == {"spans": {}, "counters": {}}
+
+
+def test_a_device_span_off_the_card_is_a_span():
+    """Off, the shared no-op; on, with a CPU tensor's device, a host-timed
+    range in the window table and the profiler's events (on a card its
+    seconds are the card's: ``tests/test_torch_cuda.py``)."""
+    cpu = torch.device("cpu")
+    assert trace.device_span("dawn.mesh.gather", cpu) is trace.span("dawn.a")
+
+    def ranges():
+        for _ in range(2):
+            with trace.device_span("dawn.mesh.gather", cpu):
+                time.sleep(0.005)
+    _, names = _profiled(ranges)
+    assert "dawn.mesh.gather" in names
+    got = trace.snapshot()["window"]["spans"]["dawn.mesh.gather"]
+    assert got["n"] == 2 and got["s"] >= 0.01
 
 
 def test_on_the_spans_land_in_the_profiler_events():

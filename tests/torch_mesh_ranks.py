@@ -223,6 +223,51 @@ def suite_executor(world: int, rank: int, out: pathlib.Path) -> dict:
                                                   use_kernel=True))
             _put(res, f"kernel.{sr}.{mode}", r)
 
+    # -- the mesh's spans and counters (repro_torch.trace) ------------------
+    # every call above ran with the profiler off: nothing in the window
+    from repro_torch import trace
+    from repro_torch.core.distributed import prepare_sharded
+    window = trace.snapshot()["window"]
+    res["trace.off_window_empty"] = np.int64(
+        window == {"spans": {}, "counters": {}})
+    mesh_names = ("dawn.mesh.combine", "dawn.mesh.gather",
+                  "dawn.mesh.reduce")
+    for key, mesh, gt, kw in (
+            [(f"trace.{sr}", meshes["2x4"], g, dict(semiring=sr))
+             for sr in SEMIRINGS]
+            + ([("trace.packed", mesh22, gk,
+                 dict(semiring="boolean", use_kernel=True))]
+               if mine(mesh22) else [])):
+        trace.reset()
+        tropical = kw["semiring"] == "tropical"
+        ops = prepare_sharded(
+            gt, mesh, weights=_weights(gt, 0, 0.5, 4.0) if tropical else None,
+            config=ShardedConfig(mode="dense", **kw))
+        setup = trace.snapshot()["setup"]
+        res[f"{key}.block_n"] = np.int64(
+            setup["spans"].get("dawn.mesh.block", {}).get("n", 0))
+        res[f"{key}.block_bytes"] = np.int64(
+            setup["gauges"].get("dawn.mesh.block_bytes", -1))
+        res[f"{key}.block_held"] = np.int64(
+            ops.dense_op.numel() * ops.dense_op.element_size())
+        res[f"{key}.block_shape"] = np.asarray(ops.dense_op.shape, np.int64)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            r = sharded_apsp(ops, srcs)
+        names = {e.name for e in prof.events()}
+        res[f"{key}.in_events"] = np.int64(all(m in names
+                                               for m in mesh_names))
+        window = trace.snapshot()["window"]
+        for m in mesh_names:
+            res[f"{key}.{m.rpartition('.')[2]}"] = np.int64(
+                window["spans"].get(m, {}).get("n", 0))
+        res[f"{key}.gather_bytes"] = np.int64(
+            window["counters"].get("dawn.mesh.gather_bytes", 0))
+        res[f"{key}.counted_sweeps"] = np.int64(
+            window["counters"].get("dawn.sweeps", 0))
+        _put(res, key, r)
+    trace.reset()
+
     # -- the facade: prepare(g).apsp(mesh=), its cache and centrality -------
     h = prepare(g, weights=w, device="cpu")
     for sr in SEMIRINGS:
