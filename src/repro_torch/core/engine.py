@@ -19,6 +19,9 @@ form per sweep.  Two selection regimes, as in the JAX package:
     live-word index (the kernels on the card), push and pull are priced
     by the index entries they walk; elsewhere (the CPU, the plain
     versions) by the TPU kernels' dense work, as in the JAX package.
+    Priced by the index, push wins at every sweep wherever its constant
+    is at most the sparse form's (always, with the default constants):
+    the tile then runs push throughout, with no per-sweep statistics.
 
   calibrated (reference path) — one sweep of each form is *measured* on
     the prepared graph and the argmin direction is fixed for the batch
@@ -286,6 +289,18 @@ def choose_direction(stats: SweepStats, *, n_pad: int, s: int, m_pad: int,
                     live_words=live_words)))
 
 
+def _index_settles_push(*, s: int, m_pad: int, cfg: EngineConfig,
+                        live_words: int) -> bool:
+    """True where :func:`choose_direction` with ``live_words`` is PUSH at
+    every sweep, whatever the frontier: push and pull then cost the same
+    float32 constant times ``o_occ_frac`` (at most 1, and a float32
+    product is monotone), so the argmin is push (the first index on a
+    tie) once that constant is at most the sparse cost.  With the default
+    constants it always is, since a live word holds at least one lane."""
+    push = np.float32(cfg.c_pull * -(-s // 32) * live_words)
+    return bool(push <= np.float32(cfg.c_sparse * s * m_pad))
+
+
 # --------------------------------------------------------------------------
 # per-batch driver (state + loop live in core/sweep.py)
 # --------------------------------------------------------------------------
@@ -317,10 +332,14 @@ def _run_batch(adj, adj_pull, src_idx, dst_idx, deg, sources: torch.Tensor,
                             index=index)
 
     choose = None
-    if forced_dir is None:
-        # the kernels that read the index are priced by its entries
-        live_words = None if index is None else index.words.numel()
-
+    # the kernels that read the index are priced by its entries
+    live_words = None if index is None else index.words.numel()
+    pinned = forced_dir is None and live_words is not None and \
+        _index_settles_push(s=s, m_pad=m_pad, cfg=cfg, live_words=live_words)
+    if pinned:
+        with trace.span("dawn.sweep.choose"):      # the tile's one choice
+            forced_dir = PUSH
+    elif forced_dir is None:
         def choose(st: SweepState) -> int:
             stats = frontier_stats(st.frontier, st.dist, bs=bs, bn=cfg.bn,
                                    bk=cfg.bk)
@@ -333,10 +352,13 @@ def _run_batch(adj, adj_pull, src_idx, dst_idx, deg, sources: torch.Tensor,
                              max_sweeps=fused_steps)
 
     st0 = S.make_state(f0, dist0, n_forms=3)
-    return S.sweep_loop(forms, st0, max_steps=max_steps, deg=deg,
-                        choose=choose,
-                        forced_dir=0 if forced_dir is None else forced_dir,
-                        fused=fused, fused_steps=fused_steps)
+    st = S.sweep_loop(forms, st0, max_steps=max_steps, deg=deg,
+                      choose=choose,
+                      forced_dir=0 if forced_dir is None else forced_dir,
+                      fused=fused, fused_steps=fused_steps)
+    if pinned:
+        trace.count("dawn.sweep.choice_pinned", st.step)
+    return st
 
 
 # --------------------------------------------------------------------------

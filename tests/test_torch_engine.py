@@ -158,6 +158,55 @@ def test_index_priced_cost_model(s):
                 tsweep.PUSH
 
 
+SETTLE_GRAPHS = {
+    "ws": lambda: tgen.watts_strogatz(200, 6, 0.1, seed=3, device="cpu"),
+    "grid": lambda: tgen.grid2d(12, 12, device="cpu"),
+}
+
+
+def index_batch(g, s):
+    """The prepared graph and ``run(cfg)``: a call of ``_run_batch`` on
+    ``s`` source rows of ``g`` given the packed operand's live-word index,
+    as the card's kernel path is (the plain versions read it here)."""
+    pg = teng.prepare_graph(g, device="cpu")
+    valid = min(s, g.n_nodes)
+    padded = torch.zeros(s, dtype=torch.int64)
+    padded[:valid] = torch.arange(valid) * (g.n_nodes // valid)
+
+    def run(cfg):
+        return teng._run_batch(
+            None, pg.adj_pull, g.src, g.dst, pg.deg, padded, valid,
+            cfg=cfg, n_real=g.n_nodes, n_pad=pg.n_pad, max_steps=g.n_nodes,
+            use_kernel=True, forced_dir=None, index=pg.adj_pull_index)
+    return pg, run
+
+
+def counting_stats(monkeypatch):
+    """Patch ``frontier_stats`` to keep every statistic it returns."""
+    seen = []
+    stats_of = teng.frontier_stats
+    monkeypatch.setattr(teng, "frontier_stats",
+                        lambda *a, **k: seen.append(stats_of(*a, **k))
+                        or seen[-1])
+    return seen
+
+
+def per_sweep(monkeypatch, run, cfg):
+    """``run(cfg)`` with the once-a-tile settlement off: the per-sweep
+    choice over the index-priced model, as every sweep chose before."""
+    with monkeypatch.context() as m:
+        m.setattr(teng, "_index_settles_push", lambda **k: False)
+        return run(cfg)
+
+
+def assert_same_run(a, b):
+    assert torch.equal(a.dist, b.dist)
+    assert (a.step, a.sweeps) == (b.step, b.sweeps)
+    assert list(a.dir_counts) == list(b.dir_counts)
+    assert a.edges_touched.numpy().tobytes() == \
+        b.edges_touched.numpy().tobytes()
+
+
 def test_index_priced_switch_drives_the_loop(monkeypatch):
     """A batch given the packed operand's live-word index, as the card's
     kernel path is (the plain versions read it here), runs the forms the
@@ -171,11 +220,7 @@ def test_index_priced_switch_drives_the_loop(monkeypatch):
     sources = torch.arange(0, 200, 7)
     padded = torch.zeros(s, dtype=torch.int64)
     padded[: sources.numel()] = sources
-    seen = []
-    stats_of = teng.frontier_stats
-    monkeypatch.setattr(teng, "frontier_stats",
-                        lambda *a, **k: seen.append(stats_of(*a, **k))
-                        or seen[-1])
+    seen = counting_stats(monkeypatch)
 
     def run(index):
         return teng._run_batch(
@@ -197,6 +242,74 @@ def test_index_priced_switch_drives_the_loop(monkeypatch):
     assert dense.dir_counts[tsweep.SPARSE] > 0
     assert torch.equal(indexed.dist, dense.dist)
     assert (indexed.step, indexed.sweeps) == (dense.step, dense.sweeps)
+
+
+def assert_settled(monkeypatch, g, s, cfg):
+    """The batch runs no per-sweep statistics and pushes every sweep, with
+    the rows, sweeps, forms and ``edges_touched`` of the per-sweep choice,
+    which ``choose_direction`` makes push at each of its sweeps."""
+    pg, run = index_batch(g, s)
+    seen = counting_stats(monkeypatch)
+    pinned = run(cfg)
+    assert seen == []
+    want = per_sweep(monkeypatch, run, cfg)
+    assert len(seen) == want.step > 1
+    live = pg.adj_pull_index.words.numel()
+    picks = [teng.choose_direction(st, n_pad=pg.n_pad, s=s, m_pad=g.m_pad,
+                                   cfg=cfg, live_words=live) for st in seen]
+    assert picks == [tsweep.PUSH] * want.step
+    assert_same_run(pinned, want)
+    assert list(pinned.dir_counts) == [pinned.step, 0, 0]
+
+
+@pytest.mark.parametrize("s", [1, 32, 128])
+@pytest.mark.parametrize("family", sorted(SETTLE_GRAPHS))
+def test_index_priced_batch_settles_push_once(family, s, monkeypatch):
+    """With the index and the default constants the tile's form is
+    settled before its first sweep."""
+    assert_settled(monkeypatch, SETTLE_GRAPHS[family](), s,
+                   teng.EngineConfig(use_kernel=True))
+
+
+def test_costly_index_keeps_the_per_sweep_choice(monkeypatch):
+    """A ``c_pull`` that prices the index above the sparse form (a tuned
+    plan's constants may) leaves the choice to every sweep: the
+    statistics run each sweep, and the loop takes what
+    ``choose_direction`` picks from them."""
+    g = SETTLE_GRAPHS["ws"]()
+    s = 32
+    pg, run = index_batch(g, s)
+    live = pg.adj_pull_index.words.numel()
+    # push / pull cost twice the sparse form at full occupancy
+    c_pull = 2 * 8.0 * s * g.m_pad / (-(-s // 32) * live)
+    cfg = teng.EngineConfig(use_kernel=True, c_pull=c_pull)
+    assert np.float32(c_pull * -(-s // 32) * live) > \
+        np.float32(cfg.c_sparse * s * g.m_pad)
+    assert not teng._index_settles_push(s=s, m_pad=g.m_pad, cfg=cfg,
+                                        live_words=live)
+    seen = counting_stats(monkeypatch)
+    got = run(cfg)
+    assert len(seen) == got.step
+    want = [0, 0, 0]
+    for st in seen:
+        want[teng.choose_direction(st, n_pad=pg.n_pad, s=s, m_pad=g.m_pad,
+                                   cfg=cfg, live_words=live)] += 1
+    assert list(got.dir_counts) == want
+    assert want[tsweep.SPARSE] > 0 and want[tsweep.PUSH] > 0
+    assert_same_run(got, per_sweep(monkeypatch, run, cfg))
+
+
+def test_an_exact_tie_settles_push(monkeypatch):
+    """Constants whose float32 push / pull and sparse costs are equal: the
+    argmin takes the first index, so the tile is settled to push."""
+    g = SETTLE_GRAPHS["grid"]()
+    s = 32
+    live = teng.prepare_graph(g, device="cpu").adj_pull_index.words.numel()
+    cfg = teng.EngineConfig(use_kernel=True, c_pull=float(s * g.m_pad),
+                            c_sparse=float(-(-s // 32) * live))
+    assert np.float32(cfg.c_pull * -(-s // 32) * live) == \
+        np.float32(cfg.c_sparse * s * g.m_pad)
+    assert_settled(monkeypatch, g, s, cfg)
 
 
 @pytest.mark.parametrize("family", ["random_ragged", "duplicate_edges",
