@@ -36,8 +36,8 @@ from ..launch.mesh import MODEL_AXIS, check_mesh_device, mesh_extent
 from . import autotune
 from . import sweep as S
 from .distributed import ShardedConfig, prepare_sharded, sharded_apsp
-from .engine import PreparedGraph, _resolve_kernel, frontier_stats, \
-    prepare_graph
+from .engine import PreparedGraph, _resolve_kernel, card_index, \
+    frontier_stats, prepare_graph
 from .frontier import UNREACHED, one_hot_frontier
 from .options import SweepOptions
 from .sssp import multi_source
@@ -145,13 +145,6 @@ def _run_counting_batch(adj, src_idx, dst_idx, deg, sources: torch.Tensor,
                         fused=fused, fused_steps=fused_steps)
 
 
-def _card_index(pg: PreparedGraph, use_kernel: bool):
-    """``adj``'s live-word index (built once per prepared graph) where the
-    push kernels run on the card; the plain versions on the CPU read
-    none, so a CPU graph never builds it."""
-    return pg.adj_index if use_kernel and pg.device.type == "cuda" else None
-
-
 def measure_counting_costs(pg: PreparedGraph, s: int,
                            cfg: CentralityConfig, *,
                            use_kernel: bool = False) -> Tuple[float, float]:
@@ -171,7 +164,8 @@ def measure_counting_costs(pg: PreparedGraph, s: int,
     forms = S.counting_forms(pg.adj, pg.graph.src, pg.graph.dst,
                              n_pad=n_pad, s=s, bn=cfg.bn, bk=cfg.bk,
                              use_kernel=use_kernel,
-                             index=_card_index(pg, use_kernel))
+                             index=card_index(pg, "adj_index",
+                                              use_kernel))
     result = S.time_sweep_forms(forms, f, (dist, sigma))
     pg.cost_cache[key] = result
     return result
@@ -234,7 +228,7 @@ def counting_apsp_blocks(g: Union[CSRGraph, PreparedGraph],
     # live-word index when a push kernel (K5 or the fused K6) does so on
     # the card
     adj = pg.adj if forced in (None, PUSH) else None
-    index = _card_index(pg, use_kernel) if adj is not None else None
+    index = card_index(pg, "adj_index", use_kernel and adj is not None)
     for lo in range(0, len(srcs), B):
         block = srcs[lo: lo + B]
         valid = len(block)

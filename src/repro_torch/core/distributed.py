@@ -57,7 +57,7 @@ from ..launch.mesh import (MODEL_AXIS, check_mesh, dp_axes, dp_size,
                            mesh_device, mesh_extent)
 from . import autotune
 from . import sweep as S
-from .engine import PreparedGraph, frontier_stats
+from .engine import PreparedGraph, card_index, frontier_stats
 from .frontier import UNREACHED, one_hot_frontier, pack_bits, unpack_bits
 from .options import SweepOptions
 from .weighted import PreparedWeightedGraph
@@ -283,8 +283,7 @@ def prepare_sharded(g: CSRGraph, mesh, *, weights=None,
                                  f"{dense_op.n_pad}, the mesh needs {n_pad}")
             name = "wdense" if tropical else \
                 "adj_pull" if packed else "adj"
-            if on_card and (name != "adj" or semiring == "counting"):
-                dense_index = getattr(dense_op, f"{name}_index")
+            dense_index = card_index(dense_op, f"{name}_index", use_kernel)
             dense_op = getattr(dense_op, name)
         if on_card and dense_index is None:
             dense_index = kernel_registry.get(semiring).operand_index(

@@ -11,17 +11,16 @@ equivalent sweep forms (``core/sweep.py::boolean_forms``):
 
 This module tiles sources into batches, runs each tile through the
 shared :func:`repro_torch.core.sweep.sweep_loop` driver, and picks the
-form per sweep.  Two selection regimes, as in the JAX package:
+form per tile or per sweep.  Two selection regimes, as in the JAX
+package:
 
-  dynamic (kernel path) — at every sweep, the occupancy cost model in
-    :func:`sweep_costs` chooses from the push kernel's occupancy tables
-    (:func:`frontier_stats`).  Where the forms read the packed operand's
-    live-word index (the kernels on the card), push and pull are priced
-    by the index entries they walk; elsewhere (the CPU, the plain
-    versions) by the TPU kernels' dense work, as in the JAX package.
-    Priced by the index, push wins at every sweep wherever its constant
-    is at most the sparse form's (always, with the default constants):
-    the tile then runs push throughout, with no per-sweep statistics.
+  dynamic (kernel path) — on the card the tile pushes every sweep: K1
+    and K2 are one kernel sequence there, and the sparse form measured
+    8.6-21x slower than both on an H100
+    (``tools/probe_sweep_choice.py``).
+    Elsewhere (the CPU, the plain versions) the occupancy cost model in
+    :func:`sweep_costs` chooses at every sweep from the push kernel's
+    occupancy tables (:func:`frontier_stats`), as in the JAX package.
 
   calibrated (reference path) — one sweep of each form is *measured* on
     the prepared graph and the argmin direction is fixed for the batch
@@ -59,8 +58,7 @@ class EngineConfig(SweepOptions):
     Cost-model units:
       c_push   — per dense element in a live (i, j, k) push tile
       c_pull   — per packed word scanned by the pull sweep (one word
-                 covers 32 nodes); with a live-word index, per index
-                 entry that K1 or K2 walks (one word, for 32 rows)
+                 covers 32 nodes)
       c_sparse — per padded CSR edge lane (gather + scatter)
     """
     c_push: float = 1.0
@@ -250,55 +248,28 @@ def frontier_stats(frontier: torch.Tensor, dist: torch.Tensor, *, bs: int,
 
 
 def sweep_costs(stats: SweepStats, *, n_pad: int, s: int, m_pad: int,
-                cfg: EngineConfig,
-                live_words: Optional[int] = None) -> torch.Tensor:
+                cfg: EngineConfig) -> torch.Tensor:
     """Modelled cost of one sweep in each form -> (3,) float32.  Each
     constant is a Python float rounded to float32 before it scales the
-    float32 statistic, as JAX's weak typing does.
-
-    ``live_words`` is the entry count of the packed operand's live-word
-    index when the forms read it (K1 / K2 on the card).  Both are then one
-    kernel sequence that walks, once per 32-row group, the index entries
-    of each column still pending, so both cost ``c_pull`` per entry times
-    the groups and ``o_occ_frac`` (at most the sparse cost, since a live
-    word holds at least one lane).  Without it, push and pull are the TPU
-    kernels' dense work, as in the JAX package."""
+    float32 statistic, as JAX's weak typing does."""
     words = n_pad // 32
     dev = stats.live_tile_frac.device
 
     def f32(x):
         return torch.tensor(x, dtype=torch.float32, device=dev)
 
-    if live_words is None:
-        push = f32(cfg.c_push * s * n_pad * n_pad) * stats.live_tile_frac
-        pull = f32(cfg.c_pull * s * n_pad * words) * stats.o_occ_frac
-    else:
-        push = pull = f32(cfg.c_pull * -(-s // 32) * live_words) \
-            * stats.o_occ_frac
+    push = f32(cfg.c_push * s * n_pad * n_pad) * stats.live_tile_frac
+    pull = f32(cfg.c_pull * s * n_pad * words) * stats.o_occ_frac
     sparse = f32(cfg.c_sparse * s * m_pad)
     return torch.stack([push, pull, sparse])
 
 
 def choose_direction(stats: SweepStats, *, n_pad: int, s: int, m_pad: int,
-                     cfg: EngineConfig,
-                     live_words: Optional[int] = None) -> int:
+                     cfg: EngineConfig) -> int:
     """argmin of the modelled costs -> PUSH | PULL | SPARSE (first index
     on a tie)."""
     return int(torch.argmin(
-        sweep_costs(stats, n_pad=n_pad, s=s, m_pad=m_pad, cfg=cfg,
-                    live_words=live_words)))
-
-
-def _index_settles_push(*, s: int, m_pad: int, cfg: EngineConfig,
-                        live_words: int) -> bool:
-    """True where :func:`choose_direction` with ``live_words`` is PUSH at
-    every sweep, whatever the frontier: push and pull then cost the same
-    float32 constant times ``o_occ_frac`` (at most 1, and a float32
-    product is monotone), so the argmin is push (the first index on a
-    tie) once that constant is at most the sparse cost.  With the default
-    constants it always is, since a live word holds at least one lane."""
-    push = np.float32(cfg.c_pull * -(-s // 32) * live_words)
-    return bool(push <= np.float32(cfg.c_sparse * s * m_pad))
+        sweep_costs(stats, n_pad=n_pad, s=s, m_pad=m_pad, cfg=cfg)))
 
 
 # --------------------------------------------------------------------------
@@ -332,11 +303,10 @@ def _run_batch(adj, adj_pull, src_idx, dst_idx, deg, sources: torch.Tensor,
                             index=index)
 
     choose = None
-    # the kernels that read the index are priced by its entries
-    live_words = None if index is None else index.words.numel()
-    pinned = forced_dir is None and live_words is not None and \
-        _index_settles_push(s=s, m_pad=m_pad, cfg=cfg, live_words=live_words)
-    if pinned:
+    if forced_dir is None and index is not None:
+        # the card's kernel path pushes: K1 and K2 are one kernel
+        # sequence there, and the sparse form measured 8.6-21x slower
+        # on an H100
         with trace.span("dawn.sweep.choose"):      # the tile's one choice
             forced_dir = PUSH
     elif forced_dir is None:
@@ -344,7 +314,7 @@ def _run_batch(adj, adj_pull, src_idx, dst_idx, deg, sources: torch.Tensor,
             stats = frontier_stats(st.frontier, st.dist, bs=bs, bn=cfg.bn,
                                    bk=cfg.bk)
             return choose_direction(stats, n_pad=n_pad, s=s, m_pad=m_pad,
-                                    cfg=cfg, live_words=live_words)
+                                    cfg=cfg)
 
     fused = None
     if fused_steps:  # resolved upstream: kernel path, push pinned
@@ -352,13 +322,10 @@ def _run_batch(adj, adj_pull, src_idx, dst_idx, deg, sources: torch.Tensor,
                              max_sweeps=fused_steps)
 
     st0 = S.make_state(f0, dist0, n_forms=3)
-    st = S.sweep_loop(forms, st0, max_steps=max_steps, deg=deg,
-                      choose=choose,
-                      forced_dir=0 if forced_dir is None else forced_dir,
-                      fused=fused, fused_steps=fused_steps)
-    if pinned:
-        trace.count("dawn.sweep.choice_pinned", st.step)
-    return st
+    return S.sweep_loop(forms, st0, max_steps=max_steps, deg=deg,
+                        choose=choose,
+                        forced_dir=0 if forced_dir is None else forced_dir,
+                        fused=fused, fused_steps=fused_steps)
 
 
 # --------------------------------------------------------------------------
@@ -381,8 +348,7 @@ def measure_sweep_costs(pg: PreparedGraph, s: int, cfg: EngineConfig, *,
     dist = torch.full((s, n_pad), UNREACHED, dtype=torch.int32,
                       device=pg.device)
     dist[:, ::4] = 1
-    index = pg.adj_pull_index if (
-        use_kernel and pg.device.type == "cuda") else None
+    index = card_index(pg, "adj_pull_index", use_kernel)
     forms = S.boolean_forms(pg.adj, pg.adj_pull, pg.graph.src, pg.graph.dst,
                             n_pad=n_pad, s=s, bn=cfg.bn, bk=cfg.bk,
                             pull_chunk=cfg.pull_chunk, use_kernel=use_kernel,
@@ -402,10 +368,19 @@ def _resolve_kernel(pg: PreparedGraph, cfg: EngineConfig) -> bool:
         else cfg.use_kernel
 
 
+def card_index(prepared, attr: str, use_kernel: bool):
+    """The prepared graph's index ``attr`` (each built once per prepared
+    graph) where its kernels run on the card; the plain versions on the
+    CPU read none, so a CPU graph never builds one."""
+    return getattr(prepared, attr) if (
+        use_kernel and prepared.device.type == "cuda") else None
+
+
 def _resolve_direction(pg: PreparedGraph, s: int, cfg: EngineConfig,
                        use_kernel: bool) -> Optional[int]:
-    """None -> per-sweep dynamic switch; int -> direction fixed per batch.
-    An explicit ``mode=`` wins, then the dynamic switch, then a
+    """None -> the dynamic regime (push on the card's kernels, the
+    per-sweep switch elsewhere); int -> direction fixed per batch.  An
+    explicit ``mode=`` wins, then the dynamic regime, then a
     :class:`~repro_torch.core.autotune.TuningPlan` (deterministic
     roofline argmin), then wall-clock calibration (the only
     non-deterministic regime, kept for plan-less runs)."""
@@ -471,9 +446,8 @@ def apsp_engine_blocks(
     # the per-sweep kernels on the card read the packed operand's
     # live-word index (built once per prepared graph); the fused block
     # reads the operand, and the plain versions on the CPU take no index
-    index = pg.adj_pull_index if (
-        use_kernel and pg.device.type == "cuda" and adj_pull is not None
-        and not fused_steps) else None
+    index = card_index(pg, "adj_pull_index", use_kernel
+                       and adj_pull is not None and not fused_steps)
     for lo in range(0, len(srcs), B):
         block = srcs[lo: lo + B]
         valid = len(block)

@@ -38,7 +38,7 @@ from ..kernels import common as kernel_common
 from ..kernels import registry as kernel_registry
 from . import autotune
 from . import sweep as S
-from .engine import _resolve_kernel, frontier_stats
+from .engine import _resolve_kernel, card_index, frontier_stats
 from .frontier import one_hot_frontier
 from .options import SweepOptions
 from .sovm import sovm_sssp
@@ -281,16 +281,6 @@ def _run_weighted_batch(wdense, src_idx, dst_idx, w_edges, deg,
                         fused=fused, fused_steps=fused_steps)
 
 
-def _card_index(pw: PreparedWeightedGraph, use_kernel: bool,
-                name: str = "wdense_index"):
-    """The prepared graph's index ``name`` (``wdense_index`` for the dense
-    kernels, ``relax_index`` for the sparse relax; each built once per
-    prepared graph) where the kernels run on the card; the plain versions
-    on the CPU read none, so a CPU graph never builds one."""
-    return getattr(pw, name) if use_kernel and pw.device.type == "cuda" \
-        else None
-
-
 def measure_weighted_costs(pw: PreparedWeightedGraph, s: int,
                            cfg: WeightedConfig, *,
                            use_kernel: bool = False) -> Tuple[float, float]:
@@ -310,9 +300,11 @@ def measure_weighted_costs(pw: PreparedWeightedGraph, s: int,
     forms = S.tropical_forms(pw.wdense, pw.graph.src, pw.graph.dst,
                              pw.w_edges, n_pad=n_pad, chunk=cfg.chunk,
                              use_kernel=use_kernel, bn=cfg.bn, bk=cfg.bk,
-                             eb=cfg.eb, windex=_card_index(pw, use_kernel),
-                             rindex=_card_index(pw, use_kernel,
-                                                "relax_index"))
+                             eb=cfg.eb,
+                             windex=card_index(pw, "wdense_index",
+                                               use_kernel),
+                             rindex=card_index(pw, "relax_index",
+                                               use_kernel))
     result = S.time_sweep_forms(forms, f, dist)
     pw.cost_cache[key] = result
     return result
@@ -381,9 +373,10 @@ def weighted_apsp(g: Union[CSRGraph, PreparedWeightedGraph],
     # and its live-word index when a dense kernel (K7 or the fused K8)
     # does so on the card; the in-lane index when K9 can
     wdense = pw.wdense if forced in (None, DENSE) else None
-    windex = _card_index(pw, use_kernel) if wdense is not None else None
-    rindex = _card_index(pw, use_kernel, "relax_index") \
-        if forced in (None, SPARSE) else None
+    windex = card_index(pw, "wdense_index",
+                        use_kernel and wdense is not None)
+    rindex = card_index(pw, "relax_index",
+                        use_kernel and forced in (None, SPARSE))
 
     rows = []
     sweeps = 0

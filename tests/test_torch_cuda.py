@@ -14,7 +14,7 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.core import engine, pack_bits
+from repro_torch.core import pack_bits
 from repro_torch.core.centrality import CentralityConfig, counting_apsp
 from repro_torch.core.engine import EngineConfig, apsp_engine, prepare_graph
 from repro_torch.core.weighted import (WeightedConfig, prepare_weighted,
@@ -260,23 +260,15 @@ def test_bovm_msbfs_accum_dtype_on_card_matches_cpu(cuda, accum):
 @pytest.mark.parametrize("opts", [dict(), dict(mode="push"),
                                   dict(mode="pull"), dict(fused_steps=-1),
                                   dict(fused_steps=4)])
-def test_engine_on_card_matches_cpu(cuda, opts, monkeypatch):
+def test_engine_on_card_matches_cpu(cuda, opts):
     """The card's rows and sweeps are the CPU's.  Pinned and fused runs
-    take the same forms on both; under the dynamic switch the card's
-    forms read the packed operand's live-word index, so its model prices
-    K1 / K2 by the index's entries: its direction counts are that model's
-    over the CPU run's per-sweep stats (the states are form-independent),
-    and each of its push and pull sweeps is one K1 or K2 launch."""
+    take the same forms on both; under the dynamic regime the card's
+    forms read the packed operand's live-word index, so every sweep of
+    every tile pushes, each one K1 launch and none K2."""
     g = gen.rmat(10, 8, directed=False, seed=2, device="cpu")
     sources = np.arange(0, 1024, 5)
     cfg = EngineConfig(use_kernel=True, **opts)
-    seen = []
-    with monkeypatch.context() as m:
-        stats_of = engine.frontier_stats
-        m.setattr(engine, "frontier_stats",
-                  lambda *a, **k: seen.append(stats_of(*a, **k)) or seen[-1])
-        want = apsp_engine(prepare_graph(g, device="cpu"), sources,
-                           config=cfg)
+    want = apsp_engine(prepare_graph(g, device="cpu"), sources, config=cfg)
     pg = prepare_graph(g, device=cuda)
     k1, k2 = bovm.packed_push_sweep.launches, bovm.packed_pull_sweep.launches
     got = apsp_engine(pg, sources, config=cfg)
@@ -285,17 +277,11 @@ def test_engine_on_card_matches_cpu(cuda, opts, monkeypatch):
     if opts:
         assert torch.equal(want.direction_counts, got.direction_counts)
         return
-    live = pg.adj_pull_index.words.numel()
-    counts = [0, 0, 0]
-    for st in seen:
-        counts[engine.choose_direction(st, n_pad=pg.n_pad,
-                                       s=cfg.source_batch,
-                                       m_pad=g.m_pad, cfg=cfg,
-                                       live_words=live)] += 1
-    assert got.direction_counts.tolist() == counts
-    assert counts[0] + counts[1] > 0
-    assert bovm.packed_push_sweep.launches - k1 == counts[0]
-    assert bovm.packed_pull_sweep.launches - k2 == counts[1]
+    swept = int(want.direction_counts.sum())
+    assert swept > 0
+    assert got.direction_counts.tolist() == [swept, 0, 0]
+    assert bovm.packed_push_sweep.launches - k1 == swept
+    assert bovm.packed_pull_sweep.launches - k2 == 0
 
 
 @pytest.mark.parametrize("mode", ["push", "pull"])

@@ -99,7 +99,7 @@ def test_dynamic_switch_visits_every_form():
     assert (rt.direction_counts > 0).sum() >= 2
 
 
-@pytest.mark.parametrize("s", [32, 128])
+@pytest.mark.parametrize("s", [8, 32, 128])
 def test_cost_model_matches_jax(s):
     rng = np.random.default_rng(s)
     n_pad, bs = 256, min(s, 128)
@@ -120,44 +120,6 @@ def test_cost_model_matches_jax(s):
                                   cfg=cfg_t)
 
 
-@pytest.mark.parametrize("s", [8, 32, 128])
-def test_index_priced_cost_model(s):
-    """Given the entry count of the live-word index the forms read (K1 /
-    K2 on the card), push and pull both cost ``c_pull`` an entry, per
-    32-row group and share of pending columns, and never more than the
-    sparse form while the count is at most ``m_pad``; given none, the
-    JAX package's model bit for bit."""
-    rng = np.random.default_rng(s + 1)
-    n_pad, bs, m_pad = 256, min(s, 128), 1024
-    cfg_j, cfg_t = jeng.EngineConfig(), teng.EngineConfig()
-    kw = dict(n_pad=n_pad, s=s, m_pad=m_pad, cfg=cfg_t)
-    for density, visited in ((0.0005, 0.5), (0.01, 0.5), (0.2, 0.5),
-                             (0.01, 0.0), (0.01, 1.0)):
-        f = (rng.random((s, n_pad)) < density).astype(np.int8)
-        d = np.where(rng.random((s, n_pad)) < visited, 1, -1).astype(np.int32)
-        sj = jeng.frontier_stats(jnp.asarray(f), jnp.asarray(d), bs=bs,
-                                 bn=128, bk=128)
-        st = teng.frontier_stats(torch.from_numpy(f), torch.from_numpy(d),
-                                 bs=bs, bn=128, bk=128)
-        np.testing.assert_array_equal(
-            np.asarray(jeng.sweep_costs(sj, n_pad=n_pad, s=s, m_pad=m_pad,
-                                        cfg=cfg_j)),
-            teng.sweep_costs(st, live_words=None, **kw).numpy())
-        sparse = np.float32(cfg_t.c_sparse * s * m_pad)
-        for live in (1, 97, m_pad // 2, m_pad):
-            c = teng.sweep_costs(st, live_words=live, **kw).numpy()
-            want = np.float32(cfg_t.c_pull * -(-s // 32) * live) \
-                * st.o_occ_frac.numpy()
-            np.testing.assert_array_equal(c, [want, want, sparse])
-            # linear in the count (doubling is exact in float32)
-            np.testing.assert_array_equal(
-                teng.sweep_costs(st, live_words=2 * live, **kw).numpy()[:2],
-                2 * c[:2])
-            assert c[0] <= c[2]
-            assert teng.choose_direction(st, live_words=live, **kw) == \
-                tsweep.PUSH
-
-
 SETTLE_GRAPHS = {
     "ws": lambda: tgen.watts_strogatz(200, 6, 0.1, seed=3, device="cpu"),
     "grid": lambda: tgen.grid2d(12, 12, device="cpu"),
@@ -165,19 +127,21 @@ SETTLE_GRAPHS = {
 
 
 def index_batch(g, s):
-    """The prepared graph and ``run(cfg)``: a call of ``_run_batch`` on
-    ``s`` source rows of ``g`` given the packed operand's live-word index,
-    as the card's kernel path is (the plain versions read it here)."""
+    """The prepared graph and ``run(cfg, indexed, forced_dir)``: a call of
+    ``_run_batch`` on ``s`` source rows of ``g``, given the packed
+    operand's live-word index as the card's kernel path is (the plain
+    versions read it here) or given none."""
     pg = teng.prepare_graph(g, device="cpu")
     valid = min(s, g.n_nodes)
     padded = torch.zeros(s, dtype=torch.int64)
     padded[:valid] = torch.arange(valid) * (g.n_nodes // valid)
 
-    def run(cfg):
+    def run(cfg, indexed=True, forced_dir=None):
         return teng._run_batch(
             None, pg.adj_pull, g.src, g.dst, pg.deg, padded, valid,
             cfg=cfg, n_real=g.n_nodes, n_pad=pg.n_pad, max_steps=g.n_nodes,
-            use_kernel=True, forced_dir=None, index=pg.adj_pull_index)
+            use_kernel=True, forced_dir=forced_dir,
+            index=pg.adj_pull_index if indexed else None)
     return pg, run
 
 
@@ -191,14 +155,6 @@ def counting_stats(monkeypatch):
     return seen
 
 
-def per_sweep(monkeypatch, run, cfg):
-    """``run(cfg)`` with the once-a-tile settlement off: the per-sweep
-    choice over the index-priced model, as every sweep chose before."""
-    with monkeypatch.context() as m:
-        m.setattr(teng, "_index_settles_push", lambda **k: False)
-        return run(cfg)
-
-
 def assert_same_run(a, b):
     assert torch.equal(a.dist, b.dist)
     assert (a.step, a.sweeps) == (b.step, b.sweeps)
@@ -207,108 +163,46 @@ def assert_same_run(a, b):
         b.edges_touched.numpy().tobytes()
 
 
-def test_index_priced_switch_drives_the_loop(monkeypatch):
-    """A batch given the packed operand's live-word index, as the card's
-    kernel path is (the plain versions read it here), runs the forms the
-    index-priced model gives for the dense-priced run's per-sweep stats:
-    none sparse, where the dense-priced run does visit the sparse form,
-    and the same rows and sweeps."""
-    g = tgen.watts_strogatz(200, 6, 0.1, seed=3, device="cpu")
-    pg = teng.prepare_graph(g, device="cpu")
-    cfg = teng.EngineConfig(use_kernel=True)
-    s = 32
-    sources = torch.arange(0, 200, 7)
-    padded = torch.zeros(s, dtype=torch.int64)
-    padded[: sources.numel()] = sources
-    seen = counting_stats(monkeypatch)
-
-    def run(index):
-        return teng._run_batch(
-            None, pg.adj_pull, g.src, g.dst, pg.deg, padded, sources.numel(),
-            cfg=cfg, n_real=g.n_nodes, n_pad=pg.n_pad, max_steps=g.n_nodes,
-            use_kernel=True, forced_dir=None, index=index)
-
-    dense = run(None)
-    stats = list(seen)
-    live = pg.adj_pull_index.words.numel()
-    assert 0 < live <= g.m_pad
-    indexed = run(pg.adj_pull_index)
-    want = [0, 0, 0]
-    for st in stats:
-        want[teng.choose_direction(st, n_pad=pg.n_pad, s=s, m_pad=g.m_pad,
-                                   cfg=cfg, live_words=live)] += 1
-    assert list(indexed.dir_counts) == want
-    assert indexed.dir_counts[tsweep.SPARSE] == 0
-    assert dense.dir_counts[tsweep.SPARSE] > 0
-    assert torch.equal(indexed.dist, dense.dist)
-    assert (indexed.step, indexed.sweeps) == (dense.step, dense.sweeps)
-
-
 def assert_settled(monkeypatch, g, s, cfg):
-    """The batch runs no per-sweep statistics and pushes every sweep, with
-    the rows, sweeps, forms and ``edges_touched`` of the per-sweep choice,
-    which ``choose_direction`` makes push at each of its sweeps."""
-    pg, run = index_batch(g, s)
+    """The batch given the index runs no per-sweep statistics and pushes
+    every sweep: the rows, sweeps, forms and ``edges_touched`` of the same
+    tile pinned to push without the index."""
+    _, run = index_batch(g, s)
     seen = counting_stats(monkeypatch)
-    pinned = run(cfg)
+    indexed = run(cfg)
     assert seen == []
-    want = per_sweep(monkeypatch, run, cfg)
-    assert len(seen) == want.step > 1
-    live = pg.adj_pull_index.words.numel()
-    picks = [teng.choose_direction(st, n_pad=pg.n_pad, s=s, m_pad=g.m_pad,
-                                   cfg=cfg, live_words=live) for st in seen]
-    assert picks == [tsweep.PUSH] * want.step
-    assert_same_run(pinned, want)
-    assert list(pinned.dir_counts) == [pinned.step, 0, 0]
+    assert_same_run(indexed, run(cfg, indexed=False, forced_dir=tsweep.PUSH))
+    assert indexed.step > 1
+    assert list(indexed.dir_counts) == [indexed.step, 0, 0]
 
 
 @pytest.mark.parametrize("s", [1, 32, 128])
 @pytest.mark.parametrize("family", sorted(SETTLE_GRAPHS))
 def test_index_priced_batch_settles_push_once(family, s, monkeypatch):
     """With the index and the default constants the tile's form is
-    settled before its first sweep."""
+    settled to push before its first sweep."""
     assert_settled(monkeypatch, SETTLE_GRAPHS[family](), s,
                    teng.EngineConfig(use_kernel=True))
 
 
-def test_costly_index_keeps_the_per_sweep_choice(monkeypatch):
-    """A ``c_pull`` that prices the index above the sparse form (a tuned
-    plan's constants may) leaves the choice to every sweep: the
-    statistics run each sweep, and the loop takes what
-    ``choose_direction`` picks from them."""
+@pytest.mark.parametrize("constants", ["default", "exact_tie",
+                                       "costly_index"])
+def test_the_indexed_tile_pushes_whatever_the_constants(constants,
+                                                        monkeypatch):
+    """The cost constants price no form where the forms read the index:
+    the default ones, ones whose float32 push and sparse prices of an
+    index entry tie, and a ``c_pull`` that prices an entry above the
+    sparse form (a tuned plan's constants may) all push every sweep."""
     g = SETTLE_GRAPHS["ws"]()
     s = 32
-    pg, run = index_batch(g, s)
-    live = pg.adj_pull_index.words.numel()
-    # push / pull cost twice the sparse form at full occupancy
-    c_pull = 2 * 8.0 * s * g.m_pad / (-(-s // 32) * live)
-    cfg = teng.EngineConfig(use_kernel=True, c_pull=c_pull)
-    assert np.float32(c_pull * -(-s // 32) * live) > \
-        np.float32(cfg.c_sparse * s * g.m_pad)
-    assert not teng._index_settles_push(s=s, m_pad=g.m_pad, cfg=cfg,
-                                        live_words=live)
-    seen = counting_stats(monkeypatch)
-    got = run(cfg)
-    assert len(seen) == got.step
-    want = [0, 0, 0]
-    for st in seen:
-        want[teng.choose_direction(st, n_pad=pg.n_pad, s=s, m_pad=g.m_pad,
-                                   cfg=cfg, live_words=live)] += 1
-    assert list(got.dir_counts) == want
-    assert want[tsweep.SPARSE] > 0 and want[tsweep.PUSH] > 0
-    assert_same_run(got, per_sweep(monkeypatch, run, cfg))
-
-
-def test_an_exact_tie_settles_push(monkeypatch):
-    """Constants whose float32 push / pull and sparse costs are equal: the
-    argmin takes the first index, so the tile is settled to push."""
-    g = SETTLE_GRAPHS["grid"]()
-    s = 32
     live = teng.prepare_graph(g, device="cpu").adj_pull_index.words.numel()
-    cfg = teng.EngineConfig(use_kernel=True, c_pull=float(s * g.m_pad),
-                            c_sparse=float(-(-s // 32) * live))
-    assert np.float32(cfg.c_pull * -(-s // 32) * live) == \
-        np.float32(cfg.c_sparse * s * g.m_pad)
+    cfg = teng.EngineConfig(use_kernel=True, **{
+        "default": {},
+        "exact_tie": dict(c_pull=float(s * g.m_pad),
+                          c_sparse=float(-(-s // 32) * live)),
+        "costly_index": dict(c_pull=2 * 8.0 * s * g.m_pad
+                             / (-(-s // 32) * live)),
+    }[constants])
     assert_settled(monkeypatch, g, s, cfg)
 
 

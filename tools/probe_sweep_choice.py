@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Time each boolean sweep form at states drawn from the benchmark's
-``msbfs`` cells, beside what the engine's cost model picks there.
+``msbfs`` cells, beside what the dense-priced cost model picks there.
 
     python3 tools/probe_sweep_choice.py [--seed N]
 
@@ -13,11 +13,11 @@ reached each form of ``core/sweep.py::boolean_forms`` on the kernel path
 (K1, K2, the sparse form) is timed: ``time_sweep_forms`` (host clock
 around 8 chained sweeps, median of 5) and CUDA events around one sweep
 from the state itself (mean of ``REPS``).  Beside the times: the
-state's occupancy stats, the index-priced model's costs and argmin
-(``live_words`` = the live-word index's entries, as the card's switch
-prices them) and the dense-priced model's (the JAX package's), and the
-host time of one per-sweep choice.  One JSON line per state, after the
-card's name and power limit.  Needs CUDA.
+state's occupancy stats, the live-word index's entry count, the
+dense-priced model's costs and argmin (the JAX package's, which the
+engine still runs off the card) and the host time of one per-sweep
+choice.  One JSON line per state, after the card's name and power limit.
+Needs CUDA.
 """
 from __future__ import annotations
 
@@ -53,8 +53,8 @@ def cuda_ms(torch, fn, reps: int = REPS) -> float:
 
 def probe_state(pg, sources, sweeps: int):
     """-> dict of the state after ``sweeps`` pinned-push sweeps from
-    ``sources`` on ``pg``: stats, the forms' times and both models'
-    costs and argmins."""
+    ``sources`` on ``pg``: stats, the forms' times and the model's costs
+    and argmin."""
     import torch
 
     from repro_torch.core import engine
@@ -71,7 +71,6 @@ def probe_state(pg, sources, sweeps: int):
     m_pad = pg.graph.m_pad
     kw = dict(n_pad=pg.n_pad, s=ROWS, m_pad=m_pad, cfg=cfg)
     dense = engine.sweep_costs(stats, **kw).tolist()
-    priced = engine.sweep_costs(stats, live_words=live, **kw).tolist()
     forms = S.boolean_forms(None, pg.adj_pull, pg.graph.src, pg.graph.dst,
                             n_pad=pg.n_pad, s=ROWS, bn=cfg.bn, bk=cfg.bk,
                             use_kernel=True, index=index)
@@ -83,7 +82,7 @@ def probe_state(pg, sources, sweeps: int):
     def choose():
         s = engine.frontier_stats(f, d, bs=min(ROWS, 128), bn=cfg.bn,
                                   bk=cfg.bk)
-        return engine.choose_direction(s, live_words=live, **kw)
+        return engine.choose_direction(s, **kw)
 
     choose()
     samples = []
@@ -101,10 +100,8 @@ def probe_state(pg, sources, sweeps: int):
         chained_ms=[1e3 * t for t in chained], one_sweep_ms=one,
         measured=names[min(range(3), key=lambda i: chained[i])],
         measured_one=names[min(range(3), key=lambda i: one[i])],
-        cost_dense=dense, cost_priced=priced,
+        cost_dense=dense,
         dense_pick=names[engine.choose_direction(stats, **kw)],
-        priced_pick=names[engine.choose_direction(stats, live_words=live,
-                                                  **kw)],
         choose_us=1e6 * sorted(samples)[REPS // 2])
 
 
