@@ -4,7 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch`` (into
-``build/repro_torch/``), drives the boolean engine through
+``build/repro_torch/``), holds the frontier packer (``pack_frontier``)
+bit for bit to ``pack_bits`` and times both at the cells' shapes against
+the packer's bytes bound on the empty card (phase ``pack``; the rows join
+the kernel table), drives the boolean engine through
 ``repro_torch.prepare(graph).apsp(sources)`` on two graphs of 65,536
 nodes made by the port's own generators, then the counting engine
 (``apsp(sources, semiring="counting")``) and the centrality analytics
@@ -259,7 +262,15 @@ REPLACES = {
     "nonzero_words": "src/repro/kernels/counting/kernel.py:184",
     "finite_words": "src/repro/kernels/tropical/kernel.py:128",
     "in_lanes": "src/repro/kernels/tropical/kernel.py:302",
+    # XLA fuses the frontier's pack into the jitted sweep on the TPU
+    "pack_frontier": "none (src/repro/core/frontier.py:24 pack_bits, "
+                     "fused by XLA)",
 }
+# the frontier packer's shapes: (rows, n, row stride); a stride above n is
+# a K-row rank's column slice of the (1,024, 1,049,088) state on the mesh
+PACK_SHAPES = ((128, 262_272, 262_272), (1024, 262_272, 1_049_088),
+               (1024, 1_049_088, 1_049_088))
+PACK_REPS = 20
 MULTI_SWEEP_NOTE = "no single PyTorch call computes a multi-sweep block"
 
 
@@ -324,6 +335,57 @@ def graph_ms(torch, fn, reps: int) -> float:
     with torch.cuda.graph(graph):
         fn()
     return cuda_ms(torch, graph.replay, reps)
+
+
+def pack_rows(torch, bovm, pack_bits, source):
+    """``pack_frontier`` at the cells' shapes against its bytes bound (R n
+    bytes read, R ceil(n / 32) words written, once) and the plain
+    ``pack_bits``: bit for bit, then timed warm (the input left in L2 by
+    the last launch, as K1's output is in a sweep; ``device_ms`` one call
+    replayed from a CUDA graph, the card's time without the host's) and
+    cold (L2 emptied by a read of 256 MB before each launch: a read, so
+    that no dirty line is written back during the launch).  On an empty
+    card, before the graphs."""
+    flush = torch.ones(256 << 20, dtype=torch.uint8, device="cuda")
+    rows = []
+    for r, n, ld in PACK_SHAPES:
+        state = torch.rand((r, ld), device="cuda") < 0.05
+        state[0] = True                          # all set: bit 31 the sign
+        x = state.to(torch.int8)[:, :n]
+        del state
+        got = bovm.pack_frontier(x)
+        if not torch.equal(got, pack_bits(x)):
+            raise AssertionError(f"pack_frontier: {r} x {n} (stride {ld}) "
+                                 f"differs from pack_bits")
+        cold = 0.0
+        for _ in range(PACK_REPS):
+            flush.amax()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            bovm.pack_frontier(x)
+            end.record()
+            torch.cuda.synchronize()
+            cold += start.elapsed_time(end)
+        bytes_ = r * n + 4 * r * got.shape[1]
+        rows.append(dict(
+            name="pack_frontier", route="cuda", source=source,
+            replaces=REPLACES["pack_frontier"], max_abs_err=0.0,
+            ms=cuda_ms(torch, lambda: bovm.pack_frontier(x), PACK_REPS),
+            device_ms=graph_ms(torch, lambda: bovm.pack_frontier(x),
+                               PACK_REPS),
+            cold_ms=cold / PACK_REPS,
+            plain_ms=cuda_ms(torch, lambda: pack_bits(x), 3),
+            bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=None, match=True,
+            state=f"{r} x {n} int8 frontier, row stride {ld}",
+            shape=dict(rows=r, n=n, row_stride=ld, words=got.shape[1]),
+            library_note="no single PyTorch call packs bits into words"))
+        del x, got
+        torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    return rows
 
 
 def scipy_dist(g, sources) -> np.ndarray:
@@ -2315,7 +2377,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     kernels = (bovm.packed_push_sweep, bovm.packed_pull_sweep,
                bovm.fused_boolean_multisweep, bovm.fused_sweep,
-               bovm.packed_live_words)
+               bovm.packed_live_words, bovm.pack_frontier)
     ckernels = (counting.fused_counting_sweep,
                 counting.fused_counting_multisweep, counting.nonzero_words)
     wkernels = (tropical.fused_minplus_sweep,
@@ -2340,6 +2402,12 @@ def main() -> int:
     emit(phase="build", seconds=time.perf_counter() - t0,
          sources=[str(s.relative_to(ROOT)) for s in sources_cu],
          libraries=[p.name for p in built])
+
+    # -- the frontier packer at the cells' shapes, on the empty card -------
+    packs = pack_rows(torch, bovm, pack_bits,
+                      sources_of["pack_frontier"])
+    for row in packs:
+        emit(phase="pack", **row)
 
     # -- graphs --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -2722,7 +2790,9 @@ def main() -> int:
     library_ms = cuda_ms(torch, lambda: torch.matmul(lib_f, lib_adj), 3)
     del lib_adj
 
-    rows_out = []
+    rows_out = [dict(row, launches=launches["pack_frontier"],
+                     launches_by_graph=by_graph.get("pack_frontier", {}))
+                for row in packs]
 
     def flat(outs):
         for o in outs:

@@ -58,7 +58,7 @@ from ..launch.mesh import (MODEL_AXIS, check_mesh, dp_axes, dp_size,
 from . import autotune
 from . import sweep as S
 from .engine import PreparedGraph, card_index, frontier_stats
-from .frontier import UNREACHED, one_hot_frontier, pack_bits, unpack_bits
+from .frontier import UNREACHED, one_hot_frontier, unpack_bits
 from .options import SweepOptions
 from .weighted import PreparedWeightedGraph
 
@@ -413,12 +413,13 @@ def _forms(ops: ShardedOperands, comm: _Mesh, s_l: int, n_real: int):
     dummy = torch.zeros(1, dtype=torch.int32, device=dev)
     fused = fused_combine = None
     fused_steps_l = 0
+    pack = kernel_registry.get("boolean").pack
 
     def or_combine(new_p):
         """⊕ = OR, bit-packed: all-gather int32 words (n_pad / 8 bytes a
         row, 8x under an int8 MAX) and OR them in group order."""
         with trace.span("dawn.mesh.combine"):
-            words = comm.gather(pack_bits(new_p != 0), model)
+            words = comm.gather(pack(new_p), model)
             words = words.view(C, -1, words.shape[-1])
             acc = words[0]
             for i in range(1, C):

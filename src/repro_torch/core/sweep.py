@@ -357,18 +357,19 @@ def boolean_forms(adj, adj_pull, src_idx, dst_idx, *, n_pad: int, s: int,
     wk = _pull_kernel_wk(max(n_pad // 32, 1))
 
     if use_kernel:
-        K = kernel_registry.get(BOOLEAN).forms
+        ks = kernel_registry.get(BOOLEAN)
+        K, pack = ks.forms, ks.pack
 
         def push(f, d, p, step):
             # the operand's word width sets the push word tile
-            new, dist = K["push"](pack_bits(f != 0), adj_pull, d, step,
+            new, dist = K["push"](pack(f), adj_pull, d, step,
                                   bs=bs, bn=bn,
                                   wk=_pull_kernel_wk(adj_pull.shape[1]),
                                   index=index)
             return new, dist, p
 
         def pull(f, d, p, step):
-            new, dist = K["pull"](pack_bits(f != 0), adj_pull, d, step,
+            new, dist = K["pull"](pack(f), adj_pull, d, step,
                                   bs=min(s, 8), bn=bn, wk=wk, index=index)
             return new, dist, p
     else:

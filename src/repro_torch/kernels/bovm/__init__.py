@@ -1,6 +1,6 @@
 from .kernel import (fused_boolean_multisweep, fused_smem_bytes, fused_sweep,
-                     packed_live_words, packed_pull_sweep, packed_push_sweep,
-                     reset_launches)
+                     pack_frontier, packed_live_words, packed_pull_sweep,
+                     packed_push_sweep, reset_launches)
 from .ops import (KernelDawnResult, msbfs_kernel, msbfs_packed,
                   pack_adjacency_pull, sweep)
 from .ref import (fused_boolean_multisweep_ref, packed_live_words_ref,
@@ -35,4 +35,5 @@ registry.register(registry.KernelSet(
           "push and pull read the packed operand's live-word index",
     fused_forms={"push": fused_boolean_multisweep},
     operand_index=packed_live_words,
+    pack=pack_frontier,
 ))

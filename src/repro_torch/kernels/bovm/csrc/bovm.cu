@@ -19,6 +19,8 @@
 // row of its column has hit.  K3 still reads the operand itself, through
 // a compacted list of the words where its row tile's frontier is active.
 // K4 is the int8 tensor-core product of the unpacked (k, n) operand.
+// Beside them, pack_frontier_kernel turns the byte frontier into the
+// packed words that K1, K2, K3 and the mesh's OR combine take.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -35,6 +37,8 @@ constexpr int kFusedThreads = 1024;  // K3: one CTA per SM
 constexpr int kListChunk = 256;      // K3 active words staged per pass
 constexpr int kMaskPitch = 33;       // K3 row masks per staged word, padded
 constexpr int kScanCols = 2;         // K3 columns a warp scans at once
+constexpr int kPackThreads = 256;    // frontier pack: a word a thread
+constexpr int kMaxGridY = 65535;
 
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -872,9 +876,87 @@ cudaLaunchConfig_t fused_config(int S, int rows, int cluster, int smem,
   return cfg;
 }
 
+// The frontier packed: x (R, n) bytes, row r at x + r * ld -> out (R, W)
+// words, W = ceil(n / 32): bit b of word w is set where byte 32 w + b is
+// not zero; bits past n are zero.  The same words as the plain
+// core.frontier.pack_bits, which widens every entry to int64, shifts it
+// and sums 32 of them.  It replaces no TPU kernel: on the TPU XLA fuses
+// that arithmetic into the jitted sweep, where PyTorch runs it as three
+// passes over 8-byte entries.
+// Bound: bytes (the R * n bytes read once, R * W words written once).
+// Design: a warp packs 32 consecutive words of a row, 1,024 bytes.  Lane
+// k loads 16-byte chunks k and k + 32 of them (each load instruction of
+// the warp reads 512 consecutive bytes), turns each chunk into 16 bits in
+// registers (per 4 bytes one SIMD compare and one multiply that gathers
+// the 4 flags), and two shuffles hand every lane the two halves of its
+// word; the warp writes its 32 words in one coalesced store.  No shared
+// memory.  The row stride is an argument, so a column slice of a wider
+// state (a K-row block's frontier) packs in place.  Where the row pointers
+// are 16-byte aligned (kVec) chunks load as vectors; the ragged tail of a
+// row, and every chunk where they are not aligned, reads single bytes.
+__device__ __forceinline__ uint32_t nibble(uint32_t v) {
+  return ((__vcmpne4(v, 0u) & 0x08040201u) * 0x01010101u) >> 24;
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kPackThreads) pack_frontier_kernel(
+    const uint8_t* __restrict__ x, uint32_t* __restrict__ out, int R, int n,
+    int W, long long ld) {
+  const int lane = threadIdx.x & 31;
+  const int w0 = (blockIdx.x * (kPackThreads / 32) + (threadIdx.x >> 5)) * 32;
+  if (w0 >= W) return;                                   // warp-uniform
+  for (int r = blockIdx.y; r < R; r += gridDim.y) {
+    const uint8_t* row = x + (size_t)r * ld;
+    uint32_t pair = 0u;               // chunk lane (low), lane + 32 (high)
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const long long b = 32LL * w0 + 16LL * (32 * k + lane);
+      uint32_t h = 0u;
+      if (kVec && b + 16 <= n) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(row + b));
+        h = nibble(v.x) | nibble(v.y) << 4 | nibble(v.z) << 8 |
+            nibble(v.w) << 12;
+      } else {
+        for (int i = 0; i < 16 && b + i < n; ++i)
+          h |= (uint32_t)(row[b + i] != 0) << i;
+      }
+      pair |= h << (16 * k);
+    }
+    // word w0 + lane is chunks 2 lane and 2 lane + 1: the low halves of
+    // lanes 2 lane, 2 lane + 1 for lane < 16, else the high halves of
+    // lanes 2 lane - 32, 2 lane - 31
+    const uint32_t lo = __shfl_sync(kFull, pair, (2 * lane) & 31);
+    const uint32_t hi = __shfl_sync(kFull, pair, (2 * lane + 1) & 31);
+    const int sh = lane < 16 ? 0 : 16;
+    if (w0 + lane < W)
+      out[(size_t)r * W + w0 + lane] =
+          (lo >> sh & 0xffffu) | (hi >> sh & 0xffffu) << 16;
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+// The frontier x (R, n) bytes, row stride ld bytes, packed into out (R,
+// ceil(n / 32)) words.
+int dawn_pack_frontier(const void* x, void* out, int R, int n, long long ld,
+                       void* stream) {
+  if (R < 0 || n < 0 || (R > 1 && ld < n)) return (int)cudaErrorInvalidValue;
+  if (R == 0 || n == 0) return 0;
+  const int W = (n + 31) / 32;
+  const dim3 grid((W + kPackThreads - 1) / kPackThreads,
+                  R < kMaxGridY ? R : kMaxGridY);
+  const bool vec = (uintptr_t)x % 16 == 0 && (R == 1 || ld % 16 == 0);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (vec)
+    pack_frontier_kernel<true><<<grid, kPackThreads, 0, st>>>(
+        (const uint8_t*)x, (uint32_t*)out, R, n, W, ld);
+  else
+    pack_frontier_kernel<false><<<grid, kPackThreads, 0, st>>>(
+        (const uint8_t*)x, (uint32_t*)out, R, n, W, ld);
+  return (int)cudaGetLastError();
+}
 
 // K1 / K2.  fp (S, W) the packed frontier; offsets (n + 1), words and
 // values the live-word index of the operand (dawn_packed_live_words);

@@ -9,11 +9,14 @@ checks, returning ``(new int8, dist int32[, prod, stopped])``.
   fused_boolean_multisweep  K3 — up to ``n_run`` sweeps per launch
   fused_sweep               K4 — masked int8 GEMM push (``push_f32``)
 
-and the builder of the packed operand's live-word index that K1 and K2
-read:
+the builder of the packed operand's live-word index that K1 and K2
+read, and the frontier's packer that K1, K2 and K3 read from:
 
   packed_live_words         (n, W) packed operand -> common.WordIndex of
                             its non-zero words, positions and values
+  pack_frontier             (R, n) byte frontier -> (R, ceil(n / 32))
+                            int32 words: ``core.frontier.pack_bits`` in
+                            one launch
 
 For tensors on the CPU each wrapper computes its plain version
 (``ref.py``).  For tensors on the card it checks dtype, shape and
@@ -34,7 +37,8 @@ from typing import Optional
 
 import torch
 
-from ...core.frontier import pack_bits
+from ... import trace
+from ...core.frontier import pack_bits, packed_width
 from .. import _build, common
 from . import ref
 
@@ -51,6 +55,7 @@ ITEM_WORDS = 64         # K1/K2: index entries of one column per work item
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
+    "dawn_pack_frontier": [_P, _P, _I, _I, ctypes.c_longlong, _P],
     "dawn_packed_sweep": [_P] * 12 + [_I] * 6 + [_P],
     "dawn_packed_live_words": [_P] * 4 + [_I] * 2 + [_P],
     "dawn_fused_boolean_multisweep": [_P] * 9 + [_I] * 8 + [_P],
@@ -79,8 +84,44 @@ def _ptr(t: torch.Tensor) -> int:
 
 def reset_launches() -> None:
     for fn in (packed_push_sweep, packed_pull_sweep,
-               fused_boolean_multisweep, fused_sweep, packed_live_words):
+               fused_boolean_multisweep, fused_sweep, packed_live_words,
+               pack_frontier):
         fn.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the frontier's packed words
+# --------------------------------------------------------------------------
+
+_BYTES = (torch.int8, torch.uint8, torch.bool)
+
+
+def pack_frontier(x: torch.Tensor) -> torch.Tensor:
+    """(R, n) frontier -> (R, ceil(n / 32)) int32 words, bit for bit
+    ``core.frontier.pack_bits(x)``: node ``32 w + b`` is bit ``b`` of word
+    ``w``, a non-zero entry is a set bit, the tail bits are zero.  On the
+    CPU it is ``pack_bits``.  On the card one launch reads an int8, uint8
+    or bool tensor as bytes (any other dtype is first reduced to
+    ``x != 0``) through its row stride, so a column slice of a wider state
+    packs without a copy; the last dim must be contiguous.  Each launch
+    adds one to the counter ``dawn.frontier.packs``."""
+    if not x.is_cuda:
+        return pack_bits(x)
+    if x.dtype not in _BYTES:
+        x = x != 0
+    if x.dim() != 2 or (x.shape[1] > 1 and x.stride(1) != 1):
+        raise ValueError(f"pack_frontier: expected a 2-d tensor with a "
+                         f"contiguous last dim, got shape "
+                         f"{tuple(x.shape)} and strides {x.stride()}")
+    rows, n = x.shape
+    out = torch.empty((rows, packed_width(n)), dtype=torch.int32,
+                      device=x.device)
+    if out.numel():
+        _launch("dawn_pack_frontier", x.device, _ptr(x), _ptr(out), rows, n,
+                x.stride(0))
+        pack_frontier.launches += 1
+        trace.count("dawn.frontier.packs")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -262,7 +303,7 @@ def fused_boolean_multisweep(frontier: torch.Tensor,
     common.check_cuda(frontier=(frontier, torch.int8),
                       adj_in_packed=(adj_in_packed, torch.int32),
                       dist=(dist, torch.int32))
-    fp = pack_bits(frontier != 0)
+    fp = pack_frontier(frontier)
     smem = fused_smem_bytes(n, FUSED_ROWS, FUSED_CLUSTER)
     if smem > common.SMEM_BUDGET_BYTES:
         raise ValueError(f"n={n}: the fused kernel's shared memory "

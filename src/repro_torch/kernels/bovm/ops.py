@@ -74,14 +74,14 @@ def msbfs_packed(adj_in_packed: torch.Tensor, sources: torch.Tensor,
     del interpret
     f0 = one_hot_frontier(sources, n, dtype=torch.bool)
     dist = torch.where(f0, 0, UNREACHED).to(torch.int32)
-    fp = pack_bits(f0)
+    fp = K.pack_frontier(f0)
     index = K.packed_live_words(adj_in_packed) if adj_in_packed.is_cuda \
         else None
     step, done = 0, False
     while not done and step < max_steps:
         new, dist = K.packed_pull_sweep(fp, adj_in_packed, dist, step + 1,
                                         bs=bs, bn=bn, wk=wk, index=index)
-        fp = pack_bits(new > 0)
+        fp = K.pack_frontier(new)
         step += 1
         done = not bool(new.any())
     return KernelDawnResult(dist, step)

@@ -32,7 +32,9 @@ class KernelSet:
     through its ``index=`` keyword, ``lane_index`` the in-lane index
     (``common.LaneIndex``, the CSC of the CSR lanes) that the sparse
     form's kernel reads the same way; the prepared graphs build each
-    once.
+    once.  ``pack`` turns an (R, n) frontier into the (R, ceil(n / 32))
+    words that a semiring's packed forms take (boolean: K1, K2, K3 and the
+    mesh's OR combine).
     """
     semiring: str
     forms: Mapping[str, Callable]
@@ -43,6 +45,7 @@ class KernelSet:
         dataclasses.field(default_factory=dict)
     operand_index: Optional[Callable] = None
     lane_index: Optional[Callable] = None
+    pack: Optional[Callable] = None
 
     def dispatchable(self, form: str, *, interpret: bool) -> bool:
         """May ``form`` run at this execution mode?  ``interpret`` is true

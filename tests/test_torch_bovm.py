@@ -463,3 +463,80 @@ def test_fused_multisweep_rejects_bad_shapes():
             torch.zeros((4, 128), dtype=torch.int8), at,
             torch.zeros((4, 128), dtype=torch.int32), 0, 1, bs=4,
             max_sweeps=2)
+
+
+# --------------------------------------------------------------------------
+# the frontier packer (pack_frontier): pack_bits on the CPU
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("layout", ["random", "all_ones", "column_slice"])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 4097])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bool, torch.int32])
+def test_pack_frontier_equals_pack_bits(dtype, n, layout):
+    """The words of ``pack_frontier`` on the CPU are ``pack_bits``' and
+    the JAX package's, bit for bit: any non-zero entry a set bit, tail
+    bits zero, bit 31 the sign of the int32 (all-ones rows), and a column
+    slice of a wider state (row stride above n) read through its
+    stride."""
+    rng = np.random.default_rng(n)
+    rows = 3
+    width = n + 40 if layout == "column_slice" else n
+    x = rng.integers(-3, 4, (rows, width)) * (rng.random((rows, width)) < 0.3)
+    if layout == "all_ones":
+        x[:] = 1
+    t = torch.from_numpy(x).to(dtype)
+    if layout == "column_slice":
+        t = t[:, 17: 17 + n]
+        assert t.stride(0) == width > n
+    got = bovm.pack_frontier(t)
+    assert got.dtype == torch.int32 and got.shape == (rows, -(-n // 32))
+    assert torch.equal(got, tpack(t))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jpack(jnp.asarray(t.numpy() != 0))).view(
+            np.int32))
+    if layout == "all_ones":
+        assert (got[:, : n // 32] == -1).all()
+        if n % 32:
+            assert int(got[0, -1]) == (1 << (n % 32)) - 1
+
+
+def test_the_boolean_set_registers_the_packer():
+    assert registry.get("boolean").pack is bovm.pack_frontier
+
+
+@pytest.mark.parametrize("form", ["push", "pull"])
+def test_kernel_forms_pack_through_pack_frontier(form):
+    """The kernel branch of ``boolean_forms`` hands the frontier itself
+    (no ``f != 0`` copy) to the boolean set's ``pack``
+    (``pack_frontier``), once a sweep, and computes what the reference
+    form does."""
+    import dataclasses
+
+    from repro_torch.core import sweep as S
+    g = tgen.erdos_renyi(200, 4.0, seed=5, device="cpu")
+    n_pad, s = g.n_padded(), 16
+    at = g.to_pull_packed(n_pad)
+    adj = g.to_dense_padded(n_pad)
+    rng = np.random.default_rng(5)
+    f = torch.from_numpy((rng.random((s, n_pad)) < 0.05).astype(np.int8))
+    d = torch.from_numpy(np.where(f.numpy() != 0, 0, -1).astype(np.int32))
+    dummy = torch.zeros(1, dtype=torch.int32)
+    seen = []
+    ks = registry.get("boolean")
+
+    def counted(x):
+        seen.append(x)
+        return ks.pack(x)
+
+    registry.register(dataclasses.replace(ks, pack=counted))
+    try:
+        k_forms = S.boolean_forms(None, at, dummy, dummy, n_pad=n_pad, s=s,
+                                  use_kernel=True)
+    finally:
+        registry.register(ks)
+    r_forms = S.boolean_forms(adj, at, dummy, dummy, n_pad=n_pad, s=s)
+    i = {"push": S.PUSH, "pull": S.PULL}[form]
+    got = k_forms[i](f, d, None, 1)
+    assert len(seen) == 1 and seen[0] is f
+    want = r_forms[i](f, d, None, 1)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card against their plain versions, and
+"""The port's CUDA kernels on the card against their plain versions (the
+frontier packer against ``pack_bits`` too), and
 the boolean, counting and tropical engines' kernel paths and incremental
 repair (K9 resuming each repair), the serving tier (K1 and K9 flushes)
 and a checkpointed job killed and resumed, on the card against the CPU;
@@ -282,6 +283,96 @@ def test_engine_on_card_matches_cpu(cuda, opts):
     assert got.direction_counts.tolist() == [swept, 0, 0]
     assert bovm.packed_push_sweep.launches - k1 == swept
     assert bovm.packed_pull_sweep.launches - k2 == 0
+
+
+# --------------------------------------------------------------------------
+# the frontier packer (pack_frontier)
+# --------------------------------------------------------------------------
+
+def _frontier(cuda, rows, n, seed, dtype=torch.int8):
+    """A (rows, n) frontier on the card, about 5 % set, its first row all
+    set (every word -1, bit 31 the sign)."""
+    gen_ = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.rand((rows, n), generator=gen_, device=cuda) < 0.05)
+    x[0] = True
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("rows,n", [(128, 262_272), (64, 1_049_088),
+                                    (3, 1), (5, 31), (5, 32), (5, 33),
+                                    (7, 4097), (9, 262_145)])
+def test_pack_frontier_kernel_matches_plain(cuda, rows, n):
+    """The kernel's words are ``pack_bits``' on the cells' shapes (128 x
+    262,272 on one card; a K-row rank's 1,049,088 columns at fewer rows)
+    and on ragged widths; one launch a call."""
+    x = _frontier(cuda, rows, n, n)
+    before = bovm.pack_frontier.launches
+    got = bovm.pack_frontier(x)
+    torch.cuda.synchronize()
+    assert bovm.pack_frontier.launches == before + 1
+    assert got.shape == (rows, -(-n // 32)) and got.dtype == torch.int32
+    assert torch.equal(got, pack_bits(x))
+
+
+@pytest.mark.parametrize("k0", [0, 262_272, 262_272 + 5, 786_816 - 3])
+def test_pack_frontier_kernel_on_a_k_block_slice(cuda, k0):
+    """A K-row block's frontier, a column slice of the (S, n_pad) state,
+    packs in place through its row stride: at an offset that keeps the
+    rows 16-byte aligned (a rank's k0 on the mesh) and at ones that do
+    not; so does a state whose row stride is not a multiple of 16."""
+    nk = 262_272
+    x = _frontier(cuda, 32, 1_049_088, k0)
+    view = x[:, k0: k0 + nk]
+    assert view.stride(0) == 1_049_088
+    got = bovm.pack_frontier(view)
+    assert torch.equal(got, pack_bits(view.contiguous()))
+    odd = _frontier(cuda, 16, 1000, k0)[:, 3: 3 + 777]
+    assert torch.equal(bovm.pack_frontier(odd), pack_bits(odd.contiguous()))
+
+
+@pytest.mark.parametrize("dtype", [torch.bool, torch.int8, torch.uint8,
+                                   torch.int32, torch.float32])
+def test_pack_frontier_kernel_reads_any_dtype(cuda, dtype):
+    """bool, int8 and uint8 are read as bytes, any non-zero byte a set
+    bit; other dtypes are reduced to ``x != 0`` first."""
+    gen_ = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randint(-2, 3, (40, 5000), generator=gen_, device=cuda)
+    x = x.to(dtype) if dtype != torch.uint8 else (x + 2).to(dtype)
+    before = bovm.pack_frontier.launches
+    got = bovm.pack_frontier(x)
+    assert bovm.pack_frontier.launches == before + 1
+    assert torch.equal(got, pack_bits(x))
+
+
+def test_pack_frontier_refuses_what_it_cannot_read(cuda):
+    x = _frontier(cuda, 64, 96, 1)
+    with pytest.raises(ValueError, match="contiguous last dim"):
+        bovm.pack_frontier(x.t())
+    with pytest.raises(ValueError, match="2-d"):
+        bovm.pack_frontier(x.reshape(2, 32, 96))
+
+
+@pytest.mark.parametrize("opts", [dict(), dict(mode="pull")])
+def test_traced_engine_packs_once_a_sweep(cuda, opts):
+    """On the card's kernel path every sweep packs its frontier once, in
+    one launch: ``dawn.frontier.packs`` equals ``dawn.sweeps``, and so
+    does the rise of ``pack_frontier.launches``."""
+    from repro_torch import trace
+    g = gen.rmat(10, 8, directed=False, seed=2, device="cpu")
+    pg = prepare_graph(g, device=cuda)
+    cfg = EngineConfig(use_kernel=True, **opts)
+    apsp_engine(pg, np.arange(8), config=cfg)          # index, warm-up
+    trace.reset()
+    before = bovm.pack_frontier.launches
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        res = apsp_engine(pg, np.arange(0, 1024, 5), config=cfg)
+    counters = trace.snapshot()["window"]["counters"]
+    trace.reset()
+    swept = int(res.direction_counts.sum())
+    assert swept > 0 and counters["dawn.sweeps"] == swept
+    assert counters["dawn.frontier.packs"] == swept
+    assert bovm.pack_frontier.launches - before == swept
 
 
 @pytest.mark.parametrize("mode", ["push", "pull"])
@@ -1352,6 +1443,10 @@ def test_a_device_span_reads_the_cards_clock(cuda):
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]):
+        # the profiler's first launch on the card sets up its device
+        # tracing on the host (most of a second): not the span's work
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         with trace.device_span("dawn.mesh.gather", cuda):
             torch.cuda._sleep(50_000_000)

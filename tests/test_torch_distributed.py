@@ -275,6 +275,20 @@ def test_kernel_path_on_cpu_ranks(world, singles, semiring, mode):
            (jax[semiring], port[semiring]), pinned=mode)
 
 
+@pytest.mark.parametrize("mode", ["dense", "sparse"])
+def test_mesh_packs_through_pack_frontier(world, mode):
+    """On a (2, 2) mesh every boolean sweep packs its new bits for the
+    OR combine through ``pack_frontier``, and on the kernel path (dense)
+    K1's K-block frontier too: once a sweep each."""
+    ranks, _ = world
+    held = [r for r in ranks if f"packs.{mode}" in r]
+    assert len(held) == 4
+    for r in held:
+        sweep, combine, sweeps = r[f"packs.{mode}"].tolist()
+        assert sweeps > 1 and combine == sweeps
+        assert sweep == (sweeps if mode == "dense" else 0)
+
+
 @pytest.mark.parametrize("semiring", W.SEMIRINGS)
 def test_facade_mesh(world, singles, semiring):
     """prepare(g).apsp(mesh=) on (2, 4); a second call reuses the cached

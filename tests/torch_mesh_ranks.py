@@ -223,6 +223,33 @@ def suite_executor(world: int, rank: int, out: pathlib.Path) -> dict:
                                                   use_kernel=True))
             _put(res, f"kernel.{sr}.{mode}", r)
 
+    # -- the frontier packer on a (2, 2) mesh: the OR combine's words (the
+    # whole n_pad) and, on the kernel path, K1's K block (n_pad / 2),
+    # counted through the boolean set's pack -------------------------------
+    import dataclasses
+
+    from repro_torch.kernels import registry
+    if mine(mesh22):
+        ks = registry.get("boolean")
+        for mode, use_kernel in (("dense", True), ("sparse", False)):
+            widths = []
+
+            def counted(x):
+                widths.append(x.shape[-1])
+                return ks.pack(x)
+
+            registry.register(dataclasses.replace(ks, pack=counted))
+            try:
+                r = sharded_apsp(gk, np.arange(8), mesh=mesh22,
+                                 config=ShardedConfig(mode=mode,
+                                                      use_kernel=use_kernel))
+            finally:
+                registry.register(ks)
+            n_pad = max(widths)
+            res[f"packs.{mode}"] = np.asarray(
+                [widths.count(n_pad // 2), widths.count(n_pad), r.sweeps],
+                np.int64)
+
     # -- the mesh's spans and counters (repro_torch.trace) ------------------
     # every call above ran with the profiler off: nothing in the window
     from repro_torch import trace
