@@ -1,14 +1,19 @@
-"""The one closed-loop traffic generator every mix is read by.
+"""The closed-loop traffic generator of the ``apsp`` and ``sssp`` mixes.
 
-A mix (``bench/traffic/<mix>.json``) names the query (``apsp`` or
-``sssp``), the sources per call, the pool of search keys the calls
-cycle through and the rows of each call the check compares; a key it
-does not know is refused.  The pool is drawn uniformly from the vertices
-of degree 1 or more (Graph500's rule for search keys); the run's seed
-orders it (:class:`Plan`) and draws the compared rows.  Every mix runs
-closed loop: each call is issued when the last one has returned, so its
-issue time is its due time; its latency runs from issue to completion
-(:func:`timer`).  The window takes every call started inside
+A query that runs open loop has a module of its own under
+``bench/queries/`` (:mod:`bench.queries`), which ``bench/run.py`` hands
+its cells to; this module draws its search keys (:func:`search_keys`,
+:func:`key_pool`) and nothing else of it.
+
+A closed-loop mix (``bench/traffic/<mix>.json``) names the query
+(``apsp`` or ``sssp``), the sources per call, the pool of search keys the
+calls cycle through and the rows of each call the check compares; a key
+it does not know is refused.  The pool is drawn uniformly from the
+vertices of degree 1 or more (Graph500's rule for search keys); the
+run's seed orders it (:class:`Plan`) and draws the compared rows.  Such a
+mix runs closed loop: each call is issued when the last one has returned,
+so its issue time is its due time; its latency runs from issue to
+completion (:func:`timer`).  The window takes every call started inside
 ``seconds`` and closes when the last one completes.  The compared rows
 are copied to the host, so the card holds only what the system holds:
 into one buffer made in set-up (:class:`Kept`), a uniform sample drawn
@@ -84,6 +89,19 @@ class Kept:
             self.where[slot] = (call, r)
 
 
+def search_keys(degree: torch.Tensor) -> np.ndarray:
+    """The vertices of degree 1 or more (Graph500's search keys), in
+    order."""
+    return torch.nonzero(degree >= 1).reshape(-1).cpu().numpy()
+
+
+def key_pool(keys: np.ndarray, size: int, pool_seed: int) -> np.ndarray:
+    """``size`` distinct search keys, drawn uniformly once per graph (from
+    ``pool_seed``)."""
+    return np.random.default_rng([pool_seed, 7]).choice(keys, size=size,
+                                                        replace=False)
+
+
 class Plan:
     """The calls of one run.  The mix's ``key_pool`` search keys are drawn
     once per graph (from ``pool_seed``); each run's ``seed`` deals them
@@ -102,13 +120,12 @@ class Plan:
         self.k = 1 if self.query == "sssp" else mix["sources_per_call"]
         self.check = min(self.k, mix["check_rows_per_call"])
         self.n = degree.numel()
-        keys = torch.nonzero(degree >= 1).reshape(-1).cpu().numpy()
+        keys = search_keys(degree)
         size = mix["key_pool"]
         if size % self.k or size > keys.size:
             raise ValueError(f"key_pool {size} must be a multiple of "
                              f"{self.k} and at most {keys.size}")
-        self.pool = np.random.default_rng([pool_seed, 7]).choice(
-            keys, size=size, replace=False)
+        self.pool = key_pool(keys, size, pool_seed)
         self.rng = np.random.default_rng([seed, 1])
         self.check_rng = np.random.default_rng([seed, 2])
         self._dealt = np.empty(0, np.int64)

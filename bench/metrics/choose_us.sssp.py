@@ -1,6 +1,7 @@
-"""Mean host time of the per-sweep form choice (the statistics, the argmin
-and its read-back), the program's ``dawn.sweep.choose`` span over the
-traced calls, in microseconds."""
+"""Mean host time of the form choice, the program's ``dawn.sweep.choose``
+span over the traced calls, in microseconds: on the card one span a tile,
+which pins the tile to push by rule; where the per-sweep choice runs (the
+statistics, the argmin and its read-back), one a sweep."""
 
 
 def read(ctx):

@@ -20,7 +20,10 @@ wrong.
 
 A cell whose configuration names a ``mesh`` runs as one process per card
 on the port's mesh path instead (:mod:`bench.world`); a cell on one card
-takes the path above, and nothing of the mesh path runs in it.
+takes the path above, and nothing of the mesh path runs in it.  A cell
+whose mix names a query with a module of its own under ``bench/queries/``
+(:mod:`bench.queries`: ``serve``, open loop) is run by that module, with
+the same arguments, and nothing of the closed loop runs in it.
 
 The last line of standard output is the result (JSON); the last lines
 of standard error are the numbers compared, each beside its limit.  No
@@ -94,9 +97,14 @@ def run_cell(cfg: dict, mix: dict, e2e: list, layer: list, *, seed: int,
     the control and the tests give their own)."""
     import torch
 
-    from bench import devtrace, driver, manifest, systems
+    from bench import devtrace, driver, manifest, queries, systems
 
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
+    kind = queries.find(mix["query"])
+    if kind is not None:
+        return kind.run_cell(cfg, mix, e2e, layer, seed=seed,
+                             seconds=seconds, trace=trace, device=device,
+                             t0=t0, system=system, log=log)
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
@@ -223,18 +231,13 @@ def finish(src, dst, n, win, kept, capture, e2e: list, layer: list, *,
             "latency_p95_ms": float(np.percentile(wall_ms, 95))
             if len(wall_ms) else None,
         }
-        for m in e2e:
-            v = values.get(m["name"])
-            if v is not None:
-                metrics[m["name"]] = {"value": v, "unit": m["unit"]}
+        metrics = measured(e2e, lambda m: values.get(m["name"]))
     summary = capture.summary if capture is not None else None
     if trace:
         traced = [(i, c) for i, c in enumerate(win.calls) if c.traced]
         ctx = Context(traced, levels, summary, g, kind, chips, busy)
-        for m in layer:
-            v = manifest.reader(m["name"]).read(ctx)
-            if v is not None:
-                metrics[m["name"]] = {"value": v, "unit": m["unit"]}
+        metrics = measured(layer,
+                           lambda m: manifest.reader(m["name"]).read(ctx))
         if cuda and summary is not None and traced:
             least = sum(yardstick.least_seconds(
                 yardstick.call_bytes(g, c.sources), kind) for _, c in traced)
@@ -243,22 +246,44 @@ def finish(src, dst, n, win, kept, capture, e2e: list, layer: list, *,
 
     device_info = {"platform": "gpu" if cuda else "cpu", "kind": kind,
                    "count": chips, "memory_peak_bytes": int(peak)}
-    result = {"correct": False, "attempted": len(win.calls),
-              "failed": failed, "metrics": metrics, "device": device_info}
     if trace and summary is not None:
         device_info["busy_s"], device_info["window_s"] = ctx.busy_s, \
             ctx.window_s
-        result["breakdown"] = {
-            "device_ops": [list(x) for x in summary.device_ops],
-            "idle_gaps": [list(x) for x in summary.idle_gaps]}
     checks = [("wrong_entries", wrong_entries, "<=", 0),
               ("failed_calls", failed, "<=", 0),
               ("rows_compared", compared, ">=", 1)]
-    result["correct"] = all(v <= lim if op == "<=" else v >= lim
-                            for _, v, op, lim in checks)
+    return result_line(checks, attempted=len(win.calls), failed=failed,
+                       metrics=metrics, device=device_info,
+                       summary=summary if trace else None), checks
+
+
+def measured(metrics: list, read) -> dict:
+    """The metrics (``BENCHMARK.json`` entries) that ``read(entry)`` gives
+    a number for, as the result line holds them."""
+    out = {}
+    for m in metrics:
+        v = read(m)
+        if v is not None:
+            out[m["name"]] = {"value": v, "unit": m["unit"]}
+    return out
+
+
+def result_line(checks: list, *, attempted: int, failed: int, metrics: dict,
+                device: dict, summary=None) -> dict:
+    """The result: ``correct`` when every check ``(name, value, op,
+    limit)`` holds, the trace's ``breakdown`` where a ``summary`` was
+    read, and the checks under the key that comes last."""
+    result = {"correct": all(v <= lim if op == "<=" else v >= lim
+                             for _, v, op, lim in checks),
+              "attempted": attempted, "failed": failed, "metrics": metrics,
+              "device": device}
+    if summary is not None:
+        result["breakdown"] = {
+            "device_ops": [list(x) for x in summary.device_ops],
+            "idle_gaps": [list(x) for x in summary.idle_gaps]}
     result["checks"] = {name: {"value": v, "limit": f"{op} {lim}"}
                         for name, v, op, lim in checks}
-    return result, checks
+    return result
 
 
 def parse(argv=None):

@@ -4,7 +4,7 @@ import json
 
 import pytest
 
-from bench import manifest
+from bench import driver, manifest, queries
 
 M = manifest.load()
 TOP = {"command", "paths", "run_seconds", "configs", "workloads",
@@ -101,7 +101,8 @@ def test_each_cell_finds_its_files_by_name(cell):
     assert cfg["name"] == w["config"]
     assert hasattr(manifest.generator(cfg["generator"]), "generate")
     mix = manifest.traffic(w["traffic"])
-    assert mix["query"] in ("apsp", "sssp")
+    assert mix["query"] in driver.QUERIES or \
+        queries.find(mix["query"]) is not None
     for m in manifest.cell_metrics(M, cell)[1]:
         assert callable(manifest.reader(m["name"]).read)
 

@@ -1,35 +1,47 @@
 """Whole runs of the harness on the CPU at a tiny size: the program comes
 out correct, and the control and each fault of the timed path come out
 not correct.  The CPU stands in for the card only here: ``run.main``
-refuses to run without one."""
+refuses to run without one.  A cell whose configuration names a mesh
+runs its configuration file, its scale cut, on that many gloo ranks
+through :func:`bench.world.launch`, as ``bench/run.py`` runs it."""
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import pytest
 import torch
 
-from bench import manifest, run, systems
+from bench import manifest, run, systems, world
 
 M = manifest.load()
-TINY = {"kron18": {"scale": 7}, "rgg18": {"n": 300}}
+TINY = {"kron18": {"scale": 7}, "rgg18": {"n": 300}, "kron20": {"scale": 11}}
 SOURCES = {"msbfs1024": 24, "msbfs128": 16, "sssp": 1}   # a call
-POOL = {"msbfs1024": 48, "msbfs128": 32, "sssp": 16}
+POOL = {"msbfs1024": 48, "msbfs128": 32, "sssp": 16, "serve_ic13": 48}
+RATE = {"serve_ic13": 200}            # an open-loop mix's queries a second
+MESH_LIMIT_S = 240
 
 
 def tiny_cell(cell):
     w = manifest.workload(M, cell)
     cfg = dict(manifest.config(M, w["config"]), **TINY[w["config"]])
-    mix = dict(manifest.traffic(w["traffic"]),
-               sources_per_call=SOURCES[w["traffic"]],
-               key_pool=POOL[w["traffic"]])
+    traffic = w["traffic"]
+    mix = dict(manifest.traffic(traffic), key_pool=POOL[traffic])
+    if traffic in SOURCES:
+        mix["sources_per_call"] = SOURCES[traffic]
+    if traffic in RATE:
+        mix["rate_per_s"] = RATE[traffic]
     e2e, layer = manifest.cell_metrics(M, cell)
     return cfg, mix, e2e, layer
 
 
 def run_tiny(cell, *, trace=False, system=None, seconds=0.3, seed=2**31 + 3):
     cfg, mix, e2e, layer = tiny_cell(cell)
+    if "mesh" in cfg:
+        return run_mesh(cfg, mix, e2e, layer, trace=trace, system=system,
+                        seconds=seconds, seed=seed)
     logs = []
     result, checks = run.run_cell(cfg, mix, e2e, layer, seed=seed,
                                   seconds=seconds, trace=trace, device="cpu",
@@ -38,7 +50,33 @@ def run_tiny(cell, *, trace=False, system=None, seconds=0.3, seed=2**31 + 3):
     return result, dict((name, v) for name, v, _, _ in checks)
 
 
+def run_mesh(cfg, mix, e2e, layer, *, trace, system, seconds, seed):
+    """The cell on one gloo rank a card of its mesh; ``system`` is a class
+    built as ``(src, dst, n, device, mesh)``, by default the mesh's
+    program."""
+    spec = world.SYSTEM if system is None else \
+        f"{system.__module__}:{system.__qualname__}"
+    cell = {"config": cfg, "mix": mix, "e2e": e2e, "layer": layer,
+            "seed": seed, "seconds": seconds, "trace": trace,
+            "device": "cpu", "system": spec, "t0": world.monotonic()}
+    with tempfile.TemporaryFile("w+") as err:
+        rc, out = world.launch(cell, limit_s=MESH_LIMIT_S, err=err,
+                               env=dict(os.environ, OMP_NUM_THREADS="1"))
+        err.seek(0)
+        assert rc == 0, err.read()[-3000:]
+    result = json.loads(out.strip().splitlines()[-1])
+    return result, {k: v["value"] for k, v in result["checks"].items()}
+
+
 CELLS = [w["name"] for w in M["workloads"]]
+
+
+def kind(cell):
+    """``mesh``, or the query of the cell's mix."""
+    w = manifest.workload(M, cell)
+    if "mesh" in manifest.config(M, w["config"]):
+        return "mesh"
+    return manifest.traffic(w["traffic"])["query"]
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -58,10 +96,11 @@ def test_traced_run_reads_the_program_counters(cell):
     result, _ = run_tiny(cell, trace=True)
     assert result["correct"]
     names = set(result["metrics"])
-    if cell.endswith("msbfs"):
-        assert {"sparse_sweep_pct.msbfs", "sweep_us.msbfs"} <= names
-    else:
-        assert "level_us.sssp" in names
+    expected = {"mesh": {"gather_mib.mesh", "sweep_span_us.mesh"},
+                "apsp": {"sparse_sweep_pct.msbfs", "sweep_us.msbfs"},
+                "sssp": {"level_us.sssp"},
+                "serve": {"cache_hit_pct.serve", "tile_fill_pct.serve"}}
+    assert expected[kind(cell)] <= names
     # no device on the CPU: the device readers find nothing to read
     assert not any("roofline" in n or "idle" in n for n in names)
 

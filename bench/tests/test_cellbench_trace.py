@@ -1,13 +1,16 @@
-"""The readers of the program's spans and counters (``repro_torch.trace``)
-on whole runs of the harness on the CPU at a tiny size: each returns a
-number in a traced run of the program, and nothing under the control."""
+"""The readers of the program's spans and counters (``repro_torch.trace``,
+and the serving tier's own counters) on whole runs of the harness on the
+CPU at a tiny size: each returns a number in a traced run of the
+program, and nothing under the control.  Which readers a cell has is
+counted from the manifest."""
 import pytest
 
 from bench import manifest, systems
-from bench.tests.test_cellbench_run import CELLS, M, run_tiny
+from bench.tests.test_cellbench_run import CELLS, M, kind, run_tiny
 
 SPAN_METRICS = ("choose_us", "sweep_span_us", "tile_fill_pct", "load_s",
-                "operand_build_s", "operand_gib")
+                "operand_build_s", "operand_gib", "gather_mib",
+                "block_build_s", "cache_hit_pct")
 
 
 def span_metrics(cell):
@@ -37,11 +40,23 @@ def fresh_tables():
 @pytest.mark.parametrize("cell", CELLS)
 def test_each_reader_finds_a_number_in_a_traced_run(cell):
     names = span_metrics(cell)
-    assert len(names) == (6 if cell.endswith("sssp") else 5)
-    result, _ = run_tiny(cell, trace=True, system=Switching)
+    assert names
+    closed = kind(cell) in ("apsp", "sssp")
+    result, _ = run_tiny(cell, trace=True,
+                         system=Switching if closed else None)
     assert result["correct"]
     got = result["metrics"]
     assert set(names) <= set(got), sorted(set(names) - set(got))
+    if kind(cell) == "mesh":
+        assert got["gather_mib.mesh"]["value"] > 0
+        assert got["block_build_s.mesh"]["value"] > 0
+        assert got["sweep_span_us.mesh"]["value"] > 0
+        return
+    if kind(cell) == "serve":
+        assert 0 < got["cache_hit_pct.serve"]["value"] < 100
+        assert 0 < got["tile_fill_pct.serve"]["value"] <= 100
+        assert got["sweep_span_us.serve"]["value"] > 0
+        return
     outside = "level_us.sssp" if cell.endswith("sssp") else "sweep_us.msbfs"
     span = "sweep_span_us." + cell.rpartition(".")[2]
     assert 0 < got[span]["value"] <= got[outside]["value"]
